@@ -18,3 +18,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from _hypothesis_stub import install_if_missing
 
 install_if_missing()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips without one); run on the card "
+        "with `python -m pytest -m cuda tests/test_torch_kernels.py`")
