@@ -9,7 +9,8 @@ checkout (``build/`` is git-ignored)::
 
 The file name carries a hash of the source and the flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is.  A missing
-``nvcc`` raises; nothing falls back to a plain version.
+``nvcc`` raises; nothing falls back to a plain version.  :func:`build_all`
+starts one ``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -21,7 +22,6 @@ import os
 import shutil
 import subprocess
 import tempfile
-import threading
 import time
 from pathlib import Path
 
@@ -37,11 +37,10 @@ NVCC_FLAGS = (
 class BuildResult:
     name: str
     path: Path
-    seconds: float      # 0.0 when an existing library was reused
+    seconds: float      # since build_all began; 0.0 when reused
     log: str            # nvcc's output (ptxas register / spill report)
 
 
-_LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _BUILDS: dict[str, BuildResult] = {}
 
@@ -64,37 +63,54 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> BuildResult:
-    """Compile ``csrc/<name>.cu`` unless its hashed library already exists."""
-    with _LOCK:
-        if name in _BUILDS:
-            return _BUILDS[name]
-        out = library_path(name)
-        if out.exists():
-            result = BuildResult(name, out, 0.0, "")
-        else:
+def sources() -> list[str]:
+    """The names of every CUDA source under ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build_all(names=None) -> list[BuildResult]:
+    """Build ``names`` (default: every source) unless their hashed libraries
+    exist: one ``nvcc`` process per source, all started together, then waited
+    for in turn.  Raises on the first build that fails."""
+    names = sources() if names is None else list(names)
+    t0 = time.perf_counter()
+    started = {}
+    try:
+        for name in names:
+            if name in _BUILDS or name in started:
+                continue
+            out = library_path(name)
+            if out.exists():
+                _BUILDS[name] = BuildResult(name, out, 0.0, "")
+                continue
             nvcc = find_nvcc()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            t0 = time.perf_counter()
-            try:
-                proc = subprocess.run(
-                    [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-                    capture_output=True, text=True, check=False,
-                )
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed to build {name}.cu:\n{proc.stdout}{proc.stderr}"
-                    )
-                os.replace(tmp, out)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-            result = BuildResult(name, out, time.perf_counter() - t0,
-                                 proc.stdout + proc.stderr)
-        _BUILDS[name] = result
-        return result
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            started[name] = (proc, tmp, out)
+        for name, (proc, tmp, out) in started.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed to build {name}.cu:\n{log}")
+            os.replace(tmp, out)
+            _BUILDS[name] = BuildResult(name, out, time.perf_counter() - t0, log)
+    finally:
+        for proc, tmp, _ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return [_BUILDS[name] for name in names]
+
+
+def build(name: str) -> BuildResult:
+    """Compile ``csrc/<name>.cu`` unless its hashed library already exists."""
+    return build_all([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -107,4 +123,4 @@ def load(name: str) -> ctypes.CDLL:
 
 
 __all__ = ["BUILD_DIR", "BuildResult", "CSRC", "NVCC_FLAGS", "build",
-           "find_nvcc", "library_path", "load"]
+           "build_all", "find_nvcc", "library_path", "load", "sources"]

@@ -1,0 +1,6 @@
+"""Lagrange encode (and same-shaped decode) GEMM: plain version and the
+hand-written CUDA kernel (``csrc/lagrange_encode.cu``)."""
+
+from .kernel import encode_matrix_cuda, launch_counts, reset_launch_counts  # noqa: F401
+from .ops import encode, encode_matrix  # noqa: F401
+from .ref import encode_matrix_ref, encode_ref  # noqa: F401

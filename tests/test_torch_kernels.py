@@ -10,6 +10,7 @@ its tests, which skip here.
 
 import ast
 import pathlib
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -249,3 +250,77 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
         if mod.split(".")[0] in ("jax", "jaxlib", "repro")
     ]
     assert not offenders, offenders
+
+
+# ---------------------------------------------------------------------------
+# build: one nvcc per source, started together (a stand-in nvcc here)
+# ---------------------------------------------------------------------------
+
+def _fake_nvcc(tmp_path: pathlib.Path) -> pathlib.Path:
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        f"#!{sys.executable}\n"
+        "import pathlib, sys, time\n"
+        "args = sys.argv[1:]\n"
+        "name = pathlib.Path(args[-1]).stem\n"
+        f"log = pathlib.Path({str(tmp_path / 'calls')!r})\n"
+        "with log.open('a') as f: f.write('start ' + name + '\\n')\n"
+        "time.sleep(0.3)\n"
+        "with log.open('a') as f: f.write('end ' + name + '\\n')\n"
+        f"fail = pathlib.Path({str(tmp_path / 'fail')!r})\n"
+        "if fail.exists() and fail.read_text() == name:\n"
+        "    print('error: ' + name); sys.exit(1)\n"
+        "pathlib.Path(args[args.index('-o') + 1]).write_bytes(b'lib')\n"
+        "print('ptxas info    : Used 10 registers')\n"
+    )
+    fake.chmod(0o755)
+    return fake
+
+
+def test_build_all_starts_one_nvcc_per_source_together(tmp_path, monkeypatch):
+    from repro_torch.kernels import build
+
+    fake = _fake_nvcc(tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "lib")
+    monkeypatch.setattr(build, "find_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "_BUILDS", {})
+    names = ["gf_matmul", "lagrange_encode", "coded_gradient"]
+    results = build.build_all(names)
+    calls = (tmp_path / "calls").read_text().split()[::2]
+    assert calls[:3] == ["start"] * 3          # all three ran before any ended
+    assert [r.name for r in results] == names
+    for r in results:
+        assert r.path == build.library_path(r.name) and r.path.exists()
+        assert "registers" in r.log and r.seconds > 0
+    # built once: a second call reuses them, a new process finds them on disk
+    assert build.build_all(names) == results
+    monkeypatch.setattr(build, "_BUILDS", {})
+    assert [r.seconds for r in build.build_all(names)] == [0.0] * 3
+    assert len((tmp_path / "calls").read_text().split()) == 12
+
+
+def test_build_all_raises_on_a_failed_build_and_leaves_no_temporaries(tmp_path,
+                                                                      monkeypatch):
+    from repro_torch.kernels import build
+
+    fake = _fake_nvcc(tmp_path)
+    (tmp_path / "fail").write_text("lagrange_encode")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "lib")
+    monkeypatch.setattr(build, "find_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "_BUILDS", {})
+    with pytest.raises(RuntimeError, match="lagrange_encode.cu:\nerror: lagrange_encode"):
+        build.build_all(["gf_matmul", "lagrange_encode", "coded_gradient"])
+    left = {p.name for p in (tmp_path / "lib").iterdir()}
+    assert left <= {build.library_path(n).name for n in ("gf_matmul", "coded_gradient")}
+    assert "lagrange_encode" not in build._BUILDS
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "_BUILDS", {})
+    monkeypatch.setattr(build, "BUILD_DIR", pathlib.Path("/nonexistent-build-dir"))
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(build.os.path, "exists", lambda _: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build("gf_matmul")
