@@ -41,7 +41,29 @@ Phases, one line each (any failure raises and exits non-zero):
      relative errors and the rounds the guard rejects); each part counts
      its launches before its cross-checks, and every coding kernel's count
      must rise;
-  8. the ported example, ``repro_torch.examples.coded_regression.run()``.
+  8. the ported example, ``repro_torch.examples.coded_regression.run()``;
+  9. flash attention (B6) against its plain version ``flash_attention_ref``
+     on the card: the serving prefill's shape q (4, 16, 2048, 128) against
+     k, v (4, 8, 2048, 128) in bf16 and in float32, ragged Sq = Sk = 1000,
+     non-causal, decode-aligned Sq = 16 < Sk = 2048, Sq > Sk with rows that
+     must be 0, and the Mixtral attention widths (48 over 8 heads, 4096
+     tokens) with a 1024-token window; inputs are the (B, H, S, D) views of
+     (B, S, H, D) tensors, as the layer passes them.  bf16 within
+     2^-8 max|v| + 2^-8 |ref| elementwise (P rounded to bf16 for P V, and
+     the output's rounding), float32 within 1e-5 (P |V|); each timed beside
+     its plain version, its bound and, where Sq = Sk and no window,
+     ``scaled_dot_product_attention``;
+ 10. the LM serving path at full width: ``qwen3_0_6b`` (28 layers, d_model
+     1024, vocab 151 936, already a multiple of the 128 it pads to, bf16,
+     random weights from a seeded generator) with ``attn_impl="flash"`` serves 4 prompts of 2048
+     tokens through ``make_prefill_step(cfg, max_len=2112)`` and 64 greedy
+     ``make_serve_step`` steps; B6 must launch 28 times (one per layer) in
+     the prefill, the flash prefill's logits must be no further from a
+     float32 copy of the model than 1.5 x the dense bf16 prefill's plus
+     5e-3, four decode steps must match a fresh flash prefill over the same
+     prefix, and every logit must be finite; then one more prefill and 8
+     decode steps run under ``torch.profiler`` for the device's busy share
+     and the kernels that take the most device time.
 
 It then prints the kernels' JSON record, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  It writes no file.
@@ -92,7 +114,10 @@ KERNELS = {   # wrapper: (source, TPU kernel it replaces)
                            "src/repro/kernels/lagrange_encode/kernel.py:36"),
     "coded_gradient_cuda": (CSRC + "coded_gradient.cu",
                             "src/repro/kernels/coded_gradient/kernel.py:40"),
+    "flash_attention_cuda": (CSRC + "flash_attention.cu",
+                             "src/repro/kernels/flash_attention/kernel.py:110"),
 }
+BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 
 
 def log(phase: str, **fields) -> None:
@@ -351,10 +376,11 @@ def coding_launches() -> dict[str, int]:
 
 def reset_all_launch_counts() -> None:
     from repro_torch.kernels import coded_gradient as cg
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gf
     from repro_torch.kernels import lagrange_encode as le
     from repro_torch.kernels import poisson_binomial as pb
-    for mod in (pb, gf, le, cg):
+    for mod in (pb, gf, le, cg, fa):
         mod.reset_launch_counts()
 
 
@@ -586,6 +612,237 @@ def coded_path() -> dict[str, int]:
     return launches
 
 
+def visible_pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the masks leave visible: what B6's work depends on."""
+    pos = np.arange(sq, dtype=np.int64) + (sk - sq)
+    hi = np.minimum(sk - 1, pos) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, pos - window + 1) if window is not None else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def check_flash_kernel() -> dict:
+    """Phase 9: B6 against ``flash_attention_ref`` on the card, timed."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (case, B, Hq, Hkv, Sq, Sk, D, dtype, causal, window, main shape)
+    cases = [
+        ("prefill", 4, 16, 8, 2048, 2048, 128, bf16, True, None, True),
+        ("prefill f32", 4, 16, 8, 2048, 2048, 128, f32, True, None, False),
+        ("ragged", 4, 16, 8, 1000, 1000, 128, bf16, True, None, False),
+        ("non-causal", 4, 16, 8, 2048, 2048, 128, bf16, False, None, False),
+        ("decode-aligned", 4, 16, 8, 16, 2048, 128, bf16, True, None, False),
+        ("sq>sk", 2, 16, 8, 300, 100, 128, bf16, True, None, False),
+        # Mixtral's attention widths; the window cut from its 4096 so that
+        # masking matters at 4096 tokens and the plain version fits
+        ("mixtral window", 1, 48, 8, 4096, 4096, 128, bf16, True, 1024, False),
+    ]
+    record = {}
+    for what, b, hq, hkv, sq, sk, d, dt, causal, window, main in cases:
+        # (B, H, S, D) views of (B, S, H, D) tensors, as attention_train passes them
+        q = torch.randn((b, sq, hq, d), generator=gen, device="cuda").to(dt).transpose(1, 2)
+        k = torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(dt).transpose(1, 2)
+        v = torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(dt).transpose(1, 2)
+        run = lambda: flash_attention_cuda(q, k, v, causal=causal, window=window)
+        plain = lambda: flash_attention_ref(q, k, v, causal=causal, window=window, block_q=1024)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        if dt == f32:
+            tol = "1e-5 (P|V|)"
+            bound = FP32_REL * flash_attention_ref(q, k, v.abs(), causal=causal,
+                                                   window=window, block_q=1024)
+        else:
+            tol = "2^-8 max|v| + 2^-8 |ref|"
+            bound = 2.0 ** -8 * (v.float().abs().amax() + want.float().abs())
+        err = float(diff.max())
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()) \
+                or bool((diff > bound).any()):
+            raise AssertionError(f"flash_attention_cuda {what}: max|diff| {err} ({tol})")
+        zero_rows = max(sq - sk, 0) if causal else 0
+        if zero_rows and bool(got[:, :, :zero_rows].any()):
+            raise AssertionError(f"flash_attention_cuda {what}: rows with no key are not 0")
+        ms = time_ms(run)
+        plain_ms = time_ms(plain, warm=1, runs=3)
+        library_ms = None
+        if sq == sk and window is None:
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            library_ms = time_ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True))
+        pairs = visible_pairs(sq, sk, causal, window)
+        moved = q.element_size() * (2 * b * hq * sq * d + 2 * b * hkv * sk * d)
+        b_ms, b_by = _bound(moved, 4 * d * pairs * b * hq,
+                            BF16_FLOP_PER_S if dt == bf16 else FP32_FLOP_PER_S)
+        log("kernel", name="flash_attention_cuda", case=json.dumps(what),
+            q=(b, hq, sq, d), kv=(b, hkv, sk, d), dtype=str(dt).split(".")[-1],
+            causal=causal, window=window, zero_rows=zero_rows, max_abs_err=err,
+            tolerance=json.dumps(tol), ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms=None if library_ms is None else f"{library_ms:.4f}",
+            bound_ms=f"{b_ms:.4f}", bound_by=b_by, bound_share=f"{b_ms / ms:.3f}")
+        entry = record.setdefault("flash_attention_cuda", {"max_abs_err": 0.0})
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if main:
+            entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=library_ms,
+                         library="scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+                         shape=[[b, hq, sq, d], [b, hkv, sk, d]])
+        del q, k, v, got, want, diff, bound
+        torch.cuda.empty_cache()
+    return record
+
+
+def timed(fn):
+    """(result, seconds) of ``fn()``, synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def serve_lm() -> int:
+    """Phase 10: the LM serving path at full width; returns B6's launches
+    in the main path's run (one flash prefill and the decode steps)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+
+    # float32 sums in every bf16 GEMM, as JAX's preferred_element_type asks
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    batch, prompt, steps = 4, 2048, 64
+    checked_steps = (0, 21, 42, 63)
+    cfg = get_config("qwen3_0_6b", attn_impl="flash")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    params = api.get_model(cfg).init_params(gen, cfg, device="cuda")
+    n_params = sum(t.numel() for t in params.parameters())
+    tokens = api.make_batch(cfg, ShapeCell("serve", prompt, batch, "prefill"), gen,
+                            device="cuda")["tokens"]
+    prefill = api.make_prefill_step(cfg, max_len=prompt + steps)
+    serve = api.make_serve_step(cfg)
+
+    # warm-up (cuBLAS handles, the allocator): one prefill and one step
+    logits, cache = prefill(params, {"tokens": tokens})
+    serve(params, cache, {"next_token": logits.argmax(-1)})
+    del logits, cache
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path: prefill, then greedy decode ---------------------------
+    reset_all_launch_counts()
+    (logits, cache), prefill_s = timed(lambda: prefill(params, {"tokens": tokens}))
+    launches_prefill = fa.launch_counts()["flash_attention_cuda"]
+    first_logits = logits
+    fed, kept = [], {}
+
+    def decode():
+        nonlocal logits, cache
+        for t in range(steps):
+            tok = logits.argmax(-1)
+            fed.append(tok)
+            logits, cache = serve(params, cache, {"next_token": tok})
+            if t in checked_steps:
+                kept[t] = logits
+    _, decode_s = timed(decode)
+    launches = fa.launch_counts()["flash_attention_cuda"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if launches_prefill != cfg.n_layers or launches != cfg.n_layers:
+        raise AssertionError(f"B6 launched {launches_prefill} times in the prefill and "
+                             f"{launches} in all, not once per layer ({cfg.n_layers})")
+    # 4. every logit finite
+    if not all(bool(torch.isfinite(t).all()) for t in (first_logits, *kept.values())):
+        raise AssertionError("non-finite logits on the serving path")
+
+    # 2. flash vs dense, against a float32 copy of the model: the kernel must
+    #    be no less accurate than the plain attention it replaces
+    dense = api.make_prefill_step(cfg, max_len=prompt + steps, attn_impl="ref")
+    dense_logits, dense_s = timed(lambda: dense(params, {"tokens": tokens})[0])
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = copy.deepcopy(params).to(torch.float32)
+    ref32 = api.make_prefill_step(cfg32, max_len=prompt, attn_impl="ref")
+    want = ref32(params32, {"tokens": tokens})[0]
+    del params32
+    torch.cuda.empty_cache()
+    real = slice(0, cfg.vocab_size)
+    err_flash = float((first_logits[:, real] - want[:, real]).abs().max())
+    err_dense = float((dense_logits[:, real] - want[:, real]).abs().max())
+    if not err_flash <= 1.5 * err_dense + 5e-3:
+        raise AssertionError(f"flash prefill max|err| {err_flash} vs float32, dense bf16 "
+                             f"{err_dense}: above 1.5 x dense + 5e-3")
+
+    # 3. decode vs prefill: step t's logits against a fresh flash prefill over
+    #    the prompt and the t + 1 tokens fed so far.  Both are bf16 evaluations
+    #    of the same function, each about err_dense from float32, so they may
+    #    differ by twice that; 0.02 covers the max over other positions.
+    tol = 2 * err_dense + 0.02
+    generated = torch.stack(fed, dim=1)                 # (B, steps)
+    before = fa.launch_counts()["flash_attention_cuda"]
+    worst = 0.0
+    for t, got in kept.items():
+        prefix = torch.cat([tokens, generated[:, :t + 1]], dim=1)
+        fresh = api.make_prefill_step(cfg, max_len=prefix.shape[1])(params, {"tokens": prefix})[0]
+        diff = float((got[:, real] - fresh[:, real]).abs().max())
+        worst = max(worst, diff)
+        if not diff <= tol:
+            raise AssertionError(f"decode step {t}: max|decode - prefill| {diff} > {tol}")
+    if fa.launch_counts()["flash_attention_cuda"] - before != cfg.n_layers * len(kept):
+        raise AssertionError("a fresh prefill did not launch B6 once per layer")
+
+    profile = profile_serving(prefill, serve, params, tokens)
+
+    log("serve", config=cfg.name, params=n_params, layers=cfg.n_layers,
+        d_model=cfg.d_model, vocab=cfg.padded_vocab, dtype=cfg.dtype,
+        batch=batch, prompt=prompt, decode_steps=steps,
+        prefill_ms=f"{prefill_s * 1e3:.3f}", dense_prefill_ms=f"{dense_s * 1e3:.3f}",
+        prefill_tokens_per_s=f"{batch * prompt / prefill_s:.0f}",
+        decode_ms_per_step=f"{decode_s / steps * 1e3:.3f}",
+        decode_tokens_per_s=f"{batch * steps / decode_s:.1f}",
+        peak_memory_gib=f"{peak_gib:.2f}", flash_launches=launches,
+        err_flash_vs_f32=err_flash, err_dense_vs_f32=err_dense,
+        decode_vs_prefill_max=worst, decode_vs_prefill_tol=tol,
+        checked_steps=json.dumps(list(kept)), gpu=json.dumps(nvidia_smi_line()))
+    for part, line in profile.items():
+        log("serve_profile", part=part, **line)
+    return launches
+
+
+def profile_serving(prefill, serve, params, tokens, steps: int = 8) -> dict:
+    """Device busy share and the top kernels by device time of one prefill
+    and of ``steps`` decode steps, from ``torch.profiler``'s kernel events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def window(fn):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall = timed(fn)
+        by_name: dict[str, float] = {}
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        busy_ms = sum(by_name.values()) / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        return {"wall_ms": f"{wall * 1e3:.3f}", "device_busy_ms": f"{busy_ms:.3f}",
+                "kernel_launches": len(kernels),
+                "idle_share": f"{1 - busy_ms / (wall * 1e3):.3f}",
+                "top_kernels_ms": json.dumps({n[:60]: round(us / 1e3, 3) for n, us in top})}
+
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["cache"] = prefill(params, {"tokens": tokens})
+
+    def run_decode():
+        for _ in range(steps):
+            state["logits"], state["cache"] = serve(
+                params, state["cache"], {"next_token": state["logits"].argmax(-1)})
+
+    return {"prefill": window(run_prefill), f"decode_{steps}_steps": window(run_decode)}
+
+
 class RecordedDraws:
     """Hands out a Draws' numbers and keeps a CPU copy of each, in order, so
     the same numbers can be replayed to the CPU engine (phase 5)."""
@@ -727,10 +984,16 @@ def main() -> int:
         throughput=json.dumps(ex["throughput"]), loss=json.dumps(ex["loss"]),
         exact_checked=ex["exact_checked"])
 
+    # -- phase 9: flash attention against its plain version ----------------------
+    record.update(check_flash_kernel())
+
+    # -- phase 10: the LM serving path -------------------------------------------
+    launches_lm = serve_lm()
+
     kernels = []
     launches = {"success_tails_cuda_w": launches_main["success_tails_cuda_w"],
                 "success_tails_cuda": launches_static["success_tails_cuda"],
-                **launches_coded}
+                **launches_coded, "flash_attention_cuda": launches_lm}
     for name, (source, replaces) in KERNELS.items():
         entry = record[name]
         kernels.append({
@@ -742,6 +1005,7 @@ def main() -> int:
             "library_ms": entry.get("library_ms"),
             "composition_ms": entry.get("composition_ms"),
             "composition": entry.get("composition"),
+            "library": entry.get("library"),
             "shape": entry["shape"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,10 +1,11 @@
 """Carry the JAX package's inputs across: numpy arrays in, port tensors out.
 
 The JAX package's "weights" are its scenario batches, load parameters and
-estimator states, and — for the coded-computing half — its encoded
-datasets.  Hand their leaves over as numpy arrays (``np.asarray`` of each
-JAX array) and :func:`to_torch` rebuilds the port's counterpart on a chosen
-device, so both packages run the same scenarios on the same data.  Objects are
+estimator states, for the coded-computing half its encoded datasets, and
+for the LM zoo its parameter trees (:func:`lm_params`).  Hand their leaves
+over as numpy arrays (``np.asarray`` of each JAX array) and :func:`to_torch`
+rebuilds the port's counterpart on a chosen device, so both packages run
+the same scenarios on the same data.  Objects are
 read by field name, so nothing of the JAX package is imported here.
 """
 
@@ -17,6 +18,7 @@ from repro_torch.core.coded_ops import CodedDataset, CodedDatasetModp
 from repro_torch.core.lagrange import CodeSpec
 from repro_torch.core.lea import EstimatorState, LoadParams, PoolLoad
 from repro_torch.device import resolve_device
+from repro_torch.models.lm import DecoderLM
 from repro_torch.sweeps.registry import ScenarioBatch
 
 _DTYPES = {
@@ -92,6 +94,35 @@ def coded_dataset(obj, device=None) -> CodedDataset | CodedDatasetModp:
                         y_tilde=None if y is None else torch.as_tensor(y, device=dev))
 
 
+def _lm_tensor(a, dev) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":     # ml_dtypes: exact through float32
+        return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def lm_params(np_params: dict, cfg, device=None) -> DecoderLM:
+    """The port's :class:`DecoderLM` from the JAX ``init_params`` tree of a
+    dense decoder LM given as numpy arrays (``jax.tree.map(np.asarray,
+    params)``): the same names, layouts and dtypes, tensor for tensor."""
+    dev = resolve_device(device)
+    blocks = np_params["blocks"]
+    if "router" in blocks:
+        raise ValueError(f"{cfg.name}: MoE parameter trees are not ported yet")
+    want = {"embed": (cfg.padded_vocab, cfg.d_model), "ln_f": (cfg.d_model,),
+            "wq": (cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.head_dim_)}
+    got = {"embed": np.shape(np_params["embed"]), "ln_f": np.shape(np_params["ln_f"]),
+           "wq": np.shape(blocks["wq"])}
+    if got != want:
+        raise ValueError(f"{cfg.name}: parameter shapes {got} do not match the config {want}")
+    tree = {"embed": _lm_tensor(np_params["embed"], dev),
+            "blocks": {name: _lm_tensor(a, dev) for name, a in blocks.items()},
+            "ln_f": _lm_tensor(np_params["ln_f"], dev)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = _lm_tensor(np_params["lm_head"], dev)
+    return DecoderLM(tree)
+
+
 def to_torch(obj, device=None):
     """Dispatch on the object's fields: a scenario batch, a pool load, an
     estimator state, an encoded dataset or load parameters."""
@@ -108,5 +139,5 @@ def to_torch(obj, device=None):
     raise TypeError(f"no port counterpart for {type(obj).__name__}")
 
 
-__all__ = ["code_spec", "coded_dataset", "estimator_state", "load_params",
-           "pool_load", "scenario_batch", "to_torch"]
+__all__ = ["code_spec", "coded_dataset", "estimator_state", "lm_params",
+           "load_params", "pool_load", "scenario_batch", "to_torch"]

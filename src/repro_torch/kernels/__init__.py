@@ -6,7 +6,10 @@
     ``csrc/gf_matmul.cu``; plain version: the 8-bit-limb fp32 GEMM route;
   * ``lagrange_encode`` — the Lagrange encode GEMM, ``csrc/lagrange_encode.cu``;
   * ``coded_gradient`` — the fused worker gradient X~^T (X~ W - Y),
-    ``csrc/coded_gradient.cu``.
+    ``csrc/coded_gradient.cu``;
+  * ``flash_attention`` — causal / sliding-window GQA attention (forward),
+    ``csrc/flash_attention.cu``; plain versions ``flash_attention_ref`` (what
+    the kernel computes) and ``attention_ref`` (the JAX package's oracle).
 
 ``build`` compiles ``csrc/*.cu`` with nvcc at first use (``build_all``: one
 nvcc per source, in parallel); ``dispatch`` is the route rule (CUDA tensor ->

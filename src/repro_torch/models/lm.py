@@ -1,0 +1,197 @@
+"""Dense decoder-only LM: parameters, prefill and cached decode
+(``repro/models/lm.py``, the text path of its dense family).
+
+Parameters live in a :class:`DecoderLM` module under the JAX names and
+layouts: ``embed`` (V, d), ``blocks`` (each tensor stacked over layers,
+(L, ...)), ``ln_f`` (d,) and ``lm_head`` (d, V) unless the embeddings are
+tied; ``params["embed"]`` reads as in JAX, so carrying JAX weights over is
+a copy, name for name (``repro_torch.convert.lm_params``).
+
+The JAX package scans over the stacked layers; the port loops over them.
+The KV cache is the JAX dict ``{"k": (L, B, Hkv, S, Dh), "v": ..., "pos"}``,
+but the port writes into it in place: :func:`prefill` writes each layer's
+keys and values straight into a preallocated cache, and :func:`decode_step`
+writes the new token's at ``pos`` and returns the same dict with ``pos``
+advanced (JAX returns a new cache built in a donated buffer).  Both run
+under ``torch.inference_mode()``.
+
+MoE blocks and the vision / audio stub frontends wait for later slices.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.device import resolve_device
+
+from . import layers as L
+
+_F32 = torch.float32
+
+
+class DecoderLM(nn.Module):
+    """The parameters of a dense decoder LM, under the JAX names."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        frozen = lambda t: nn.Parameter(t, requires_grad=False)
+        self.embed = frozen(tree["embed"])
+        self.blocks = nn.ParameterDict({k: frozen(v) for k, v in tree["blocks"].items()})
+        self.ln_f = frozen(tree["ln_f"])
+        if tree.get("lm_head") is None:
+            self.register_parameter("lm_head", None)
+        else:
+            self.lm_head = frozen(tree["lm_head"])
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def layer(self, i: int) -> dict[str, torch.Tensor]:
+        """Layer ``i``'s block tensors (views of the stacked ones)."""
+        return {name: t[i] for name, t in self.blocks.items()}
+
+
+def _check_dense(cfg) -> None:
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE blocks are not ported yet (a later LM-zoo slice)")
+    if cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
+            "(a later LM-zoo slice)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(generator: torch.Generator, cfg, device=None) -> DecoderLM:
+    """Random parameters from the JAX package's distributions (normal times
+    0.02, output projections times 0.02 / sqrt(2 L), norms at 1), drawn in
+    float32 from ``generator`` and cast to ``cfg.dtype``.  Same
+    distributions, not the same bits: the generator must live on
+    ``device``."""
+    _check_dense(cfg)
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    hq, hkv, hd, n = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.n_layers
+
+    def normal(*shape, scale=0.02):
+        t = torch.randn(shape, generator=generator, dtype=_F32, device=dev)
+        return (t * scale).to(dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    out_scale = 0.02 / math.sqrt(2 * n)
+    blocks = {
+        "ln1": ones(n, d), "ln2": ones(n, d),
+        "wq": normal(n, d, hq * hd), "wk": normal(n, d, hkv * hd),
+        "wv": normal(n, d, hkv * hd), "wo": normal(n, hq * hd, d, scale=out_scale),
+    }
+    if cfg.qk_norm:
+        blocks["q_scale"] = ones(n, hd)
+        blocks["k_scale"] = ones(n, hd)
+    if cfg.mlp_type == "swiglu":
+        blocks["w_gate"] = normal(n, d, f)
+    blocks["w_up"] = normal(n, d, f)
+    blocks["w_down"] = normal(n, f, d, scale=out_scale)
+    tree = {"embed": normal(v, d), "blocks": blocks, "ln_f": ones(d)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = normal(d, v)
+    return DecoderLM(tree)
+
+
+# ---------------------------------------------------------------------------
+# forward pieces
+# ---------------------------------------------------------------------------
+
+def _embed(params: DecoderLM, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    x = F.embedding(tokens, params["embed"])
+    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+
+
+def _embed_sequence(params: DecoderLM, batch, cfg):
+    """Tokens -> (B, S, d), and the number of prefix (non-text) positions
+    (0: the stub frontends are not ported)."""
+    _check_dense(cfg)
+    return _embed(params, batch["tokens"], cfg), 0
+
+
+def _logits(params: DecoderLM, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Float32 logits (the bf16 operands' products summed in float32), the
+    padded vocabulary masked to -1e30."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = torch.matmul(x.to(_F32), head.to(_F32))
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = -1e30
+    return logits
+
+
+def _block_tail(x: torch.Tensor, bp, cfg) -> torch.Tensor:
+    return x + L.mlp(L.rms_norm(x, bp["ln2"]), bp, cfg)
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch_size: int, max_len: int, dtype=None, device=None) -> dict:
+    dev = resolve_device(device)
+    dtype = dtype or getattr(torch, cfg.dtype)
+    shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, max_len, cfg.head_dim_)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=dev),
+        "v": torch.zeros(shape, dtype=dtype, device=dev),
+        "pos": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+@torch.inference_mode()
+def prefill(params: DecoderLM, batch, cfg, *, max_len: int | None = None):
+    """Forward the prompt; return (last-position float32 logits (B, V), the
+    KV cache with ``max_len`` slots and ``pos`` = prompt length)."""
+    x, _ = _embed_sequence(params, batch, cfg)
+    b, s_total = x.shape[:2]
+    max_len = max_len or s_total
+    if max_len < s_total:
+        raise ValueError(f"max_len {max_len} is shorter than the prompt ({s_total})")
+    positions = torch.arange(s_total, device=x.device)
+    cache = init_cache(cfg, b, max_len, dtype=x.dtype, device=x.device)
+    for i in range(cfg.n_layers):
+        bp = params.layer(i)
+        att, (k, v) = L.attention_train(L.rms_norm(x, bp["ln1"]), bp, cfg,
+                                        positions=positions, return_kv=True)
+        cache["k"][i, :, :, :s_total] = k
+        cache["v"][i, :, :, :s_total] = v
+        x = _block_tail(x + att, bp, cfg)
+    x = L.rms_norm(x[:, -1:], params["ln_f"])
+    logits = _logits(params, x, cfg)[:, 0]
+    cache["pos"].fill_(s_total)
+    return logits, cache
+
+
+@torch.inference_mode()
+def decode_step(params: DecoderLM, batch, cache: dict, cfg):
+    """One-token decode.  batch = {"next_token": (B,)}; ``cache`` from
+    :func:`init_cache` or :func:`prefill`, updated in place and returned
+    with ``pos`` advanced by one."""
+    x = _embed(params, batch["next_token"][:, None], cfg)
+    pos = cache["pos"]
+    for i in range(cfg.n_layers):
+        bp = params.layer(i)
+        att, _, _ = L.attention_decode(L.rms_norm(x, bp["ln1"]), bp, cfg,
+                                       cache["k"][i], cache["v"][i], pos)
+        x = _block_tail(x + att, bp, cfg)
+    x = L.rms_norm(x, params["ln_f"])
+    logits = _logits(params, x, cfg)[:, 0]                 # (B, V)
+    cache["pos"] = pos + 1
+    return logits, cache
+
+
+__all__ = ["DecoderLM", "decode_step", "init_cache", "init_params", "prefill"]

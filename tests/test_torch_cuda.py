@@ -7,6 +7,8 @@ card::
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -153,3 +155,64 @@ def test_exact_coded_round_on_the_card_equals_the_cpu(cuda_device):
         coded_ops.encode_dataset_modp(spec, x, y, device="cpu"), w, on)
     assert bool(got[1]) and bool(want[1])
     assert torch.equal(got[0].cpu(), want[0])
+
+
+# ---------------------------------------------------------------------------
+# flash attention (B6) and the LM serving path
+# ---------------------------------------------------------------------------
+
+# (B, Hq, Hkv, Sq, Sk, D, causal, window)
+FLASH_CASES = [(2, 4, 2, 100, 100, 64, True, None),
+               (1, 8, 1, 200, 300, 128, False, None),
+               (2, 4, 4, 257, 257, 32, True, 50)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_flash_attention_kernel_matches_plain_version(cuda_device, case, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    b, hq, hkv, sq, sk, d, causal, window = case
+    gen = torch.Generator(device=cuda_device).manual_seed(sq + d)
+    # (B, H, S, D) views of (B, S, H, D) tensors, as attention_train passes them
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=cuda_device)
+               .to(dtype).transpose(1, 2)
+               for s, h in ((sq, hq), (sk, hkv), (sk, hkv)))
+    before = fa.launch_counts()["flash_attention_cuda"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.launch_counts()["flash_attention_cuda"] == before + 1
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:        # reduction order: 1e-5 (P |V|)
+        bound = 1e-5 * fa.flash_attention_ref(q, k, v.abs(), causal=causal, window=window)
+    else:                             # P rounded to bf16, and the output's rounding
+        bound = 2.0 ** -8 * (v.float().abs().amax() + want.float().abs())
+    assert got.stride() == q.stride()
+    assert bool((diff <= bound).all()), float(diff.max())
+
+
+@pytest.mark.cuda
+def test_lm_smoke_serving_on_the_card_matches_the_cpu(cuda_device):
+    """qwen3 SMOKE (float32) through the flash prefill and 4 decode steps:
+    the card within 1e-4 of the CPU (float32 sums in other orders through
+    two layers, logits of order 0.5)."""
+    from repro_torch.configs import ShapeCell, get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    cfg = get_smoke_config("qwen3_0_6b", attn_impl="flash")
+    params = api.get_model(cfg).init_params(torch.Generator().manual_seed(0), cfg,
+                                            device="cpu")
+    tokens = api.make_batch(cfg, ShapeCell("c", 40, 3, "prefill"),
+                            torch.Generator().manual_seed(1), device="cpu")["tokens"]
+    prefill, serve = api.make_prefill_step(cfg, max_len=48), api.make_serve_step(cfg)
+    on_card = copy.deepcopy(params).to(cuda_device)
+    before = fa.launch_counts()["flash_attention_cuda"]
+    got, cache = prefill(on_card, {"tokens": tokens.to(cuda_device)})
+    assert fa.launch_counts()["flash_attention_cuda"] == before + cfg.n_layers
+    want, cache_cpu = prefill(params, {"tokens": tokens})
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    for _ in range(4):
+        tok = want.argmax(-1)
+        got, cache = serve(on_card, cache, {"next_token": tok.to(cuda_device)})
+        want, cache_cpu = serve(params, cache_cpu, {"next_token": tok})
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
