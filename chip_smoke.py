@@ -11,8 +11,13 @@ Phases, one line each (any failure raises and exits non-zero):
      process per source, all started together;
   2. each kernel entry point against its plain PyTorch version on the card,
      at the main path's shapes and at n = 15, 64, 100 (max |diff| <= 1e-5),
-     with its time (CUDA events, median of warm runs), the plain version's
-     time and the card's bound for the same work;
+     with its time, the plain version's time and the card's bound for the
+     same work.  Every time here and in phases 6 and 9 is taken twice, the
+     same way for kernel, plain version and library call (``time_ms``): a
+     single call between CUDA events (``ms``; on an idle card this counts
+     the call's host work before its launch too) and 10 back-to-back calls
+     over 10 (``*_batched``; host work hidden where it is shorter than the
+     kernel), each the median of warm runs;
   3. the main path: ``sweeps.run("fig3", seeds=64)`` at the paper's scale
      (n = 15, K* = 99, M = 20 000 rounds, 4 chains, lea / static / oracle),
      held to the committed ``BENCH_fig3.json`` (|mean - value| <= 4.5 x the
@@ -26,8 +31,10 @@ Phases, one line each (any failure raises and exits non-zero):
   6. the coding kernels against their plain versions on the card, at the
      coded path's shapes and one ragged shape each: the exact GF(p) matmul
      (``matmul_gf_cuda``, ``bmm_gf_cuda``; equal to ``matmul_gf_dot`` to the
-     bit, residues 0 and p-1 included), the Lagrange encode GEMM and the
-     fused coded gradient (within the float32 reduction-order bound
+     bit, residues 0 and p-1 included), the Lagrange encode GEMM (its
+     streaming route at k = 8 and 5, the scalar stream at ragged columns,
+     the tiled route at k = 64; each line names its route) and the fused
+     coded gradient (within the float32 reduction-order bound
      |diff| <= 1e-5 * (|A| |B|) elementwise), each timed beside its plain
      version, its bound and its library call or composition of calls;
   7. the coded path: the exact degree-1 round at the paper's EC2 scenario 1
@@ -44,15 +51,19 @@ Phases, one line each (any failure raises and exits non-zero):
   8. the ported example, ``repro_torch.examples.coded_regression.run()``;
   9. flash attention (B6) against its plain version ``flash_attention_ref``
      on the card: the serving prefill's shape q (4, 16, 2048, 128) against
-     k, v (4, 8, 2048, 128) in bf16 and in float32, ragged Sq = Sk = 1000,
-     non-causal, decode-aligned Sq = 16 < Sk = 2048, Sq > Sk with rows that
-     must be 0, and the Mixtral attention widths (48 over 8 heads, 4096
-     tokens) with a 1024-token window; inputs are the (B, H, S, D) views of
-     (B, S, H, D) tensors, as the layer passes them.  bf16 within
-     2^-8 max|v| + 2^-8 |ref| elementwise (P rounded to bf16 for P V, and
-     the output's rounding), float32 within 1e-5 (P |V|); each timed beside
-     its plain version, its bound and, where Sq = Sk and no window,
-     ``scaled_dot_product_attention``;
+     k, v (4, 8, 2048, 128) in bf16, fp16 and float32, the same at D = 64,
+     the SMOKE configs' D = 32, ragged Sq = Sk = 1000, non-causal,
+     decode-aligned Sq = 16 < Sk = 2048, Sq > Sk with rows that must be 0,
+     and the Mixtral attention widths (48 over 8 heads, 4096 tokens) with a
+     1024-token window; each line names the route its dtype and D take
+     (wgmma, mma or ffma); inputs are the (B, H, S, D) views of (B, S, H, D)
+     tensors, as the layer passes them.  bf16 and fp16 within
+     eps max|v| + eps |ref| elementwise, eps the type's rounding unit (2^-8,
+     2^-11: P rounded to the input type for P V, and the output's
+     rounding), float32 within 1e-5 (P |V|); each timed beside its plain
+     version, its bound and, where Sq = Sk and no window,
+     ``scaled_dot_product_attention``; then Sk = 0 on every route must give
+     zeros;
  10. the LM serving path at full width: ``qwen3_0_6b`` (28 layers, d_model
      1024, vocab 151 936, already a multiple of the 128 it pads to, bf16,
      random weights from a seeded generator) with ``attn_impl="flash"`` serves 4 prompts of 2048
@@ -72,10 +83,12 @@ It then prints the kernels' JSON record, the ``nvidia-smi`` line and, last,
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 from pathlib import Path
 
 import numpy as np
@@ -133,20 +146,62 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, warm: int = 3, runs: int = 10) -> float:
-    """Median of ``runs`` CUDA-event timings after ``warm`` untimed calls."""
+class Timing(NamedTuple):
+    """Two times of one call, in ms, taken the same way for a kernel, its
+    plain version and its library call."""
+    one: float        # CUDA events around a single call on an idle card: the
+                      # call's host work before its launch is counted too
+    batched: float    # CUDA events around ``batch`` back-to-back calls, over
+                      # ``batch``: the card runs one launch while the host
+                      # queues the next, so host work is hidden where it is
+                      # shorter than the kernel
+
+
+def time_ms(fn, warm: int = 3, runs: int = 10, batch: int = 10) -> Timing:
+    """Both :class:`Timing` s of ``fn``, each the median of ``runs``
+    timings, after ``warm`` untimed calls."""
     for _ in range(warm):
         fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
+
+    def median_of(calls: int) -> float:
+        times = []
+        for _ in range(runs):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                fn()
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop) / calls)
+        return statistics.median(times)
+
+    return Timing(median_of(1), median_of(batch))
+
+
+def timing_fields(b_ms: float | None = None, **times: Timing | None) -> dict[str, str | None]:
+    """Log fields of named timings: ``<name>`` the single call and
+    ``<name>_batched`` the back-to-back one, and the bound's share of the
+    kernel's ``ms`` by each."""
+    fields: dict[str, str | None] = {}
+    for name, t in times.items():
+        fields[name] = None if t is None else f"{t.one:.4f}"
+        fields[f"{name}_batched"] = None if t is None else f"{t.batched:.4f}"
+    if b_ms is not None:
+        fields["bound_ms"] = f"{b_ms:.4f}"
+        fields["bound_share"] = f"{b_ms / times['ms'].one:.3f}"
+        fields["bound_share_batched"] = f"{b_ms / times['ms'].batched:.3f}"
+    return fields
+
+
+def timing_entry(**times: Timing | None) -> dict[str, float | None]:
+    """The kernels line's numbers of named timings: ``<name>`` the single
+    call, ``<name>_batched`` the back-to-back one."""
+    entry: dict[str, float | None] = {}
+    for name, t in times.items():
+        entry[name] = None if t is None else t.one
+        entry[f"{name}_batched"] = None if t is None else t.batched
+    return entry
 
 
 def bound_ms(probs: torch.Tensor, w: torch.Tensor, per_row: bool) -> tuple[float, str]:
@@ -217,14 +272,12 @@ def check_kernels(kernel_mod, ref) -> dict:
         plain_ms = time_ms(lambda: ref(probs, w_ref), warm=1, runs=3)
         b_ms, b_by = bound_ms(probs, w_ref, per_row)
         log("kernel", name=name, rows=rows, n=n, main_shape=main_shape,
-            max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
-            bound_ms=f"{b_ms:.4f}", bound_by=b_by,
-            bound_share=f"{b_ms / ms:.3f}")
+            max_abs_err=err, bound_by=b_by, **timing_fields(b_ms, ms=ms, plain_ms=plain_ms))
         entry = record.setdefault(name, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if main_shape:
-            entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         shape=[rows, n])
+            entry.update(timing_entry(ms=ms, plain_ms=plain_ms), bound_ms=b_ms,
+                         bound_by=b_by, shape=[rows, n])
         del probs, w, out, want
         torch.cuda.empty_cache()
     return record
@@ -292,10 +345,10 @@ def check_coding_kernels() -> dict:
         b_ms, b_by = _bound(4 * batch * (m * c + c * n + m * n),
                             batch * m * c * n * GF_INSTR_PER_TERM, INT_ISSUE_PER_S)
         log("kernel", name=name, case=json.dumps(what), shape=(batch, m, c, n),
-            max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-            bound_ms=f"{b_ms:.4f}", bound_by=b_by, bound_share=f"{b_ms / ms:.3f}")
-        keep(name, err, main, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-             bound_by=b_by, library_ms=None, composition_ms=plain_ms,
+            max_abs_err=err, bound_by=b_by, **timing_fields(b_ms, ms=ms, plain_ms=plain_ms))
+        keep(name, err, main, **timing_entry(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                             composition_ms=plain_ms),
+             bound_ms=b_ms, bound_by=b_by,
              composition="matmul_gf_dot: 8-bit limb split, one fp32 torch.matmul "
                          "per 256-wide K-chunk, 16 Mersenne rotations and adds",
              shape=[batch, m, c, n])
@@ -304,8 +357,9 @@ def check_coding_kernels() -> dict:
     # B4: (nr, k, cols)
     # (150, 8) is the float regression at k = 8, read in phase 7; (150, 5) the
     # one phase 7 checks
+    # (37, 5, 1001) the ragged stream route; (150, 64, 18 000) the tiled route
     for (nr, k, cols), main in (((150, 8, 180_000), True), ((150, 5, 180_000), False),
-                                ((37, 5, 1001), False)):
+                                ((37, 5, 1001), False), ((150, 64, 18_000), False)):
         g = torch.randn((nr, k), generator=gen, device="cuda")
         x = torch.randn((k, cols), generator=gen, device="cuda")
         run = lambda: le.encode_matrix_cuda(g, x)
@@ -323,11 +377,12 @@ def check_coding_kernels() -> dict:
         b_ms, b_by = _bound(4 * (nr * k + k * cols + nr * cols), 2 * nr * k * cols,
                             FP32_FLOP_PER_S)
         log("kernel", name="encode_matrix_cuda", shape=(nr, k, cols),
-            max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-            library_ms=f"{library_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
-            bound_share=f"{b_ms / ms:.3f}")
-        keep("encode_matrix_cuda", err, main, ms=ms, plain_ms=plain_ms,
-             bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+            route=le.encode_route(k, cols), max_abs_err=err, bound_by=b_by,
+            **timing_fields(b_ms, ms=ms, plain_ms=plain_ms, library_ms=library_ms))
+        keep("encode_matrix_cuda", err, main,
+             **timing_entry(ms=ms, plain_ms=plain_ms, library_ms=library_ms),
+             bound_ms=b_ms, bound_by=b_by,
+             library="torch.matmul", kernel_route=le.encode_route(k, cols),
              shape=[nr, k, cols])
         del g, x, got, want, bound, diff
 
@@ -354,12 +409,12 @@ def check_coding_kernels() -> dict:
         b_ms, b_by = _bound(4 * (nr * r_rows * c + nr * r_rows * p + c * p + nr * c * p),
                             4 * nr * r_rows * c * p, FP32_FLOP_PER_S)
         log("kernel", name="coded_gradient_cuda", shape=(nr, r_rows, c, p),
-            max_abs_err=err, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-            composition_ms=f"{composition_ms:.4f}", bound_ms=f"{b_ms:.4f}",
-            bound_by=b_by, bound_share=f"{b_ms / ms:.3f}")
-        keep("coded_gradient_cuda", err, main, ms=ms, plain_ms=plain_ms,
-             bound_ms=b_ms, bound_by=b_by, library_ms=None,
-             composition_ms=composition_ms,
+            max_abs_err=err, bound_by=b_by,
+            **timing_fields(b_ms, ms=ms, plain_ms=plain_ms, composition_ms=composition_ms))
+        keep("coded_gradient_cuda", err, main,
+             **timing_entry(ms=ms, plain_ms=plain_ms, library_ms=None,
+                            composition_ms=composition_ms),
+             bound_ms=b_ms, bound_by=b_by,
              composition="two torch.bmm calls (x w - y, then x^T resid), TF32 off",
              shape=[nr, r_rows, c, p])
         del x, y, w, got, want, bound, diff, ax
@@ -622,15 +677,19 @@ def visible_pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:
 
 def check_flash_kernel() -> dict:
     """Phase 9: B6 against ``flash_attention_ref`` on the card, timed."""
-    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_ref
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                      flash_attention_ref, flash_route)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(9)
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     # (case, B, Hq, Hkv, Sq, Sk, D, dtype, causal, window, main shape)
     cases = [
         ("prefill", 4, 16, 8, 2048, 2048, 128, bf16, True, None, True),
+        ("prefill fp16", 4, 16, 8, 2048, 2048, 128, f16, True, None, False),
         ("prefill f32", 4, 16, 8, 2048, 2048, 128, f32, True, None, False),
+        ("prefill d64", 4, 16, 8, 2048, 2048, 64, bf16, True, None, False),
+        ("smoke width d32", 4, 4, 2, 1000, 1000, 32, bf16, True, None, False),
         ("ragged", 4, 16, 8, 1000, 1000, 128, bf16, True, None, False),
         ("non-causal", 4, 16, 8, 2048, 2048, 128, bf16, False, None, False),
         ("decode-aligned", 4, 16, 8, 16, 2048, 128, bf16, True, None, False),
@@ -654,9 +713,10 @@ def check_flash_kernel() -> dict:
             tol = "1e-5 (P|V|)"
             bound = FP32_REL * flash_attention_ref(q, k, v.abs(), causal=causal,
                                                    window=window, block_q=1024)
-        else:
-            tol = "2^-8 max|v| + 2^-8 |ref|"
-            bound = 2.0 ** -8 * (v.float().abs().amax() + want.float().abs())
+        else:     # eps: the type's rounding unit
+            eps_log2 = -8 if dt == bf16 else -11
+            tol = f"2^{eps_log2} max|v| + 2^{eps_log2} |ref|"
+            bound = 2.0 ** eps_log2 * (v.float().abs().amax() + want.float().abs())
         err = float(diff.max())
         if got.shape != want.shape or not bool(torch.isfinite(got).all()) \
                 or bool((diff > bound).any()):
@@ -673,22 +733,32 @@ def check_flash_kernel() -> dict:
         pairs = visible_pairs(sq, sk, causal, window)
         moved = q.element_size() * (2 * b * hq * sq * d + 2 * b * hkv * sk * d)
         b_ms, b_by = _bound(moved, 4 * d * pairs * b * hq,
-                            BF16_FLOP_PER_S if dt == bf16 else FP32_FLOP_PER_S)
-        log("kernel", name="flash_attention_cuda", case=json.dumps(what),
+                            FP32_FLOP_PER_S if dt == f32 else BF16_FLOP_PER_S)
+        route = flash_route(dt, d)
+        log("kernel", name="flash_attention_cuda", case=json.dumps(what), route=route,
             q=(b, hq, sq, d), kv=(b, hkv, sk, d), dtype=str(dt).split(".")[-1],
             causal=causal, window=window, zero_rows=zero_rows, max_abs_err=err,
-            tolerance=json.dumps(tol), ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-            library_ms=None if library_ms is None else f"{library_ms:.4f}",
-            bound_ms=f"{b_ms:.4f}", bound_by=b_by, bound_share=f"{b_ms / ms:.3f}")
+            tolerance=json.dumps(tol),
+            tolerance_used=f"{float((diff / bound.clamp_min(1e-30)).max()):.3f}",
+            bound_by=b_by,
+            **timing_fields(b_ms, ms=ms, plain_ms=plain_ms, library_ms=library_ms))
         entry = record.setdefault("flash_attention_cuda", {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if main:
-            entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=library_ms,
+            entry.update(timing_entry(ms=ms, plain_ms=plain_ms, library_ms=library_ms),
+                         bound_ms=b_ms, bound_by=b_by,
                          library="scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
-                         shape=[[b, hq, sq, d], [b, hkv, sk, d]])
+                         kernel_route=route, shape=[[b, hq, sq, d], [b, hkv, sk, d]])
         del q, k, v, got, want, diff, bound
         torch.cuda.empty_cache()
+    for dt, d in ((bf16, 128), (f16, 64), (bf16, 32), (f32, 128)):   # no keys: all zero
+        q = torch.randn((2, 4, 37, d), generator=gen, device="cuda").to(dt)
+        k = torch.empty((2, 2, 0, d), dtype=dt, device="cuda")
+        got = flash_attention_cuda(q, k, k, causal=True)
+        if got.shape != q.shape or bool(got.any()):
+            raise AssertionError(f"flash_attention_cuda Sk = 0 {dt} D = {d}: not all 0")
+        log("kernel_no_keys", route=flash_route(dt, d), dtype=str(dt).split(".")[-1], d=d,
+            zeros=True)
     return record
 
 
@@ -898,9 +968,16 @@ def main() -> int:
     for built in builds:
         log("build", source=built.name, build_s=f"{built.seconds:.2f}",
             library=built.path.name)
+        kernel = ""
         for line in built.log.splitlines():
-            if "registers" in line or "spill" in line:
-                log("ptxas", source=built.name, line=json.dumps(line.strip()))
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:   # the mangled name less its namespace: flash_wgmma_kernelI13__nv_bfloat16Li128...
+                kernel = re.sub(r"^_Z(N\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+)?\d+", "", entry.group(1))[:60]
+            elif "registers" in line or "spill" in line or "C7514" in line:
+                log("ptxas", source=built.name, kernel=kernel, line=json.dumps(line.strip()))
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    log("wgmma_smem", **{f"d{d}_bytes": fa_kernel.wgmma_smem_bytes(d)
+                         for d in fa_kernel.WGMMA_HEAD_DIMS})
 
     record = check_kernels(kernel_mod, success_tails_ref)
 
@@ -1003,9 +1080,13 @@ def main() -> int:
             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"],
             "library_ms": entry.get("library_ms"),
+            "ms_batched": entry["ms_batched"],
+            "plain_ms_batched": entry["plain_ms_batched"],
+            "library_ms_batched": entry.get("library_ms_batched"),
             "composition_ms": entry.get("composition_ms"),
             "composition": entry.get("composition"),
             "library": entry.get("library"),
+            "kernel_route": entry.get("kernel_route"),
             "shape": entry["shape"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,29 +3,44 @@
 :func:`flash_attention_cuda` replaces ``flash_attention_pallas``; the CUDA
 source (``kernels/csrc/flash_attention.cu``) states the design and bound.
 
-It takes q (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D) of one float type
-(bfloat16 and float16 on the tensor cores, float32 on FFMA) on one CUDA
-device, with D in {16, 32, 64, 128} and Hq a multiple of Hkv.  The tensors
-need not be contiguous: the kernel reads each through its batch, head and
-sequence strides, so the (B, H, S, D) views that ``attention_train`` makes
-with ``transpose(1, 2)`` go in without a copy; only the head dimension must
-be contiguous and each row 16-byte aligned.  The output takes q's layout
-(``torch.empty_like``), so the layer's transpose back is a view too.  The
-wrapper checks all that, launches on the current stream, raises if the
-launch reports an error, and adds one to its launch count.  It never falls
-back to the plain version.
+It takes q (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D) of one float type on one
+CUDA device, with D in {16, 32, 64, 128} and Hq a multiple of Hkv.  The
+dtype and D alone choose the kernel (:func:`flash_route`): bfloat16 and
+float16 at D = 64 and 128 take the Hopper kernel (TMA ring, wgmma, warp
+specialised), at D = 16 and 32 the mma.sync kernel; float32 takes the FFMA
+kernel.  The tensors need not be contiguous: every route reads each tensor
+through its batch, head and sequence strides (the wgmma route through a
+4-D TMA tensor map built from them, :func:`tma_geometry`), so the
+(B, H, S, D) views that ``attention_train`` makes with ``transpose(1, 2)``
+go in without a copy; only the head dimension must be contiguous and each
+row 16-byte aligned.  The output takes q's layout (``torch.empty_like``), so
+the layer's transpose back is a view too.  The wrapper checks all that,
+launches on the current stream, raises if the launch or a tensor map is
+refused, and adds one to its launch count.  With no keys (Sk = 0) it
+launches nothing and returns zeros, what every route computes for a row that
+sees no key (and TMA takes no empty extent).  It never falls back to the
+plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+ROUTES = {"ffma": 0, "mma": 1, "wgmma": 2}
+# One TMA box: 64 16-bit columns (the 128-byte swizzle's span) by 128 rows
+# (the kernel's query and key tiles).
+TMA_BOX = (64, 128)
+_TMA_STRIDE_MAX = 2**40
+_HOST_ERRORS = {-1: "the CUDA driver offers no cuTensorMapEncodeTiled",
+                -2: "cuTensorMapEncodeTiled refused a tensor map"}
 _INT_MAX = 2**31 - 1
 _GRID_MAX = 65535
 
@@ -51,11 +66,72 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = build.load("flash_attention")
         lib.flash_attention_fwd.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 12
+            + [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int, ctypes.c_int,
+               ctypes.c_float, ctypes.c_void_p])
         lib.flash_attention_fwd.restype = ctypes.c_int
+        lib.flash_attention_wgmma_smem_bytes.argtypes = [ctypes.c_int]
+        lib.flash_attention_wgmma_smem_bytes.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def flash_route(dtype: torch.dtype, d: int) -> str:
+    """The kernel that takes ``dtype`` at head dimension ``d``: ``"wgmma"``
+    for bfloat16 / float16 at D = 64 and 128, ``"mma"`` for them at D = 16
+    and 32, ``"ffma"`` for float32."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dimension {d} not in {HEAD_DIMS}")
+    if dtype == torch.float32:
+        return "ffma"
+    if dtype in (torch.bfloat16, torch.float16):
+        return "wgmma" if d in WGMMA_HEAD_DIMS else "mma"
+    raise ValueError(f"flash attention takes {list(_DTYPES)}, got {dtype}")
+
+
+def tma_geometry(t: torch.Tensor) -> tuple[int, ...]:
+    """The 4-D TMA tensor map of a (B, H, S, D) 16-bit tensor, as the CUDA
+    source reads it: the extents innermost first (D, S, H, B), the byte
+    strides of S, H and B, and the box (columns, rows) of :data:`TMA_BOX`.
+
+    Raises ``ValueError`` for a view TMA cannot take: a head dimension that
+    is not contiguous or not a whole number of boxes, a base address that is
+    not 16-byte aligned, a stride that is not a multiple of 16 bytes, an
+    empty extent.  The stride of an axis of extent 1 is never followed, so
+    it is given as the dense one.
+    """
+    if t.dim() != 4 or t.element_size() != 2:
+        raise ValueError(f"TMA maps take 4-D 16-bit tensors, got {t.dtype} {tuple(t.shape)}")
+    if t.data_ptr() % 16:
+        raise ValueError("TMA: the base address must be 16-byte aligned")
+    return _tma_layout(tuple(t.shape), t.stride())
+
+
+@functools.lru_cache(maxsize=256)
+def _tma_layout(shape: tuple[int, ...], stride: tuple[int, ...]) -> tuple[int, ...]:
+    """:func:`tma_geometry` of a 16-bit layout (the part that does not
+    depend on the address), computed once per layout."""
+    b, h, s, d = shape
+    if stride[3] != 1 or d % TMA_BOX[0]:
+        raise ValueError(f"TMA: the head dimension must be contiguous and a multiple of "
+                         f"{TMA_BOX[0]}, got D = {d}, strides {stride}")
+    if min(shape) < 1:
+        raise ValueError(f"TMA takes no empty extent, got {shape}")
+    strides = []
+    for extent, step, dense in ((s, stride[2], d), (h, stride[1], s * d),
+                                (b, stride[0], h * s * d)):
+        nbytes = (step if extent > 1 else dense) * 2
+        if nbytes % 16 or not 0 < nbytes < _TMA_STRIDE_MAX:
+            raise ValueError(f"TMA: byte strides must be multiples of 16 below 2^40, "
+                             f"got strides {stride}")
+        strides.append(nbytes)
+    return (d, s, h, b, *strides, *TMA_BOX)
+
+
+def wgmma_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one block of the wgmma route at head
+    dimension ``d``, as the built kernel requests it (builds on first use)."""
+    return int(_library().flash_attention_wgmma_smem_bytes(int(d)))
 
 
 def kernel_takes(t: torch.Tensor) -> bool:
@@ -81,34 +157,39 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if not kernel_takes(t):
             raise ValueError(f"{name}: the head dimension must be contiguous and "
                              f"rows 16-byte aligned, got strides {t.stride()}")
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"flash attention takes {list(_DTYPES)}, got {q.dtype}")
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     if (k.shape[0] != b or k.shape[3] != d or v.shape != k.shape
             or hkv == 0 or hq % hkv):
         raise ValueError(f"flash attention: bad shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dimension {d} not in {HEAD_DIMS}")
+    route = flash_route(q.dtype, d)
     if max(sq, sk) > _INT_MAX or b > _GRID_MAX or hq > _GRID_MAX:
         raise ValueError(f"flash attention: shape {tuple(q.shape)} exceeds the grid")
     out = torch.empty_like(q)          # q's strides: q is dense or a dense view
     if out.numel() == 0:
         return out
+    if sk == 0:                        # no row sees a key: every route's l == 0 guard gives 0
+        return out.zero_()
+    tma = None
+    if route == "wgmma":
+        geom = [n for t in (q, k, v) for n in tma_geometry(t)]
+        tma = (ctypes.c_ulonglong * len(geom))(*geom)
     if scale is None:
         scale = float(d) ** -0.5
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _library().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-        b, hq, hkv, sq, sk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], int(bool(causal)), -1 if window is None else int(window),
-        float(scale), stream)
+        ROUTES[route], b, hq, hkv, sq, sk, d, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *out.stride()[:3], tma, int(bool(causal)),
+        -1 if window is None else int(window), float(scale), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+        why = _HOST_ERRORS.get(err, f"cudaError {err}")
+        raise RuntimeError(f"flash_attention {route} kernel launch failed: {why}")
     _LAUNCHES["flash_attention_cuda"] += 1
     return out
 
 
-__all__ = ["HEAD_DIMS", "flash_attention_cuda", "kernel_takes", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["HEAD_DIMS", "ROUTES", "TMA_BOX", "WGMMA_HEAD_DIMS", "flash_attention_cuda",
+           "flash_route", "kernel_takes", "launch_counts", "reset_launch_counts",
+           "tma_geometry", "wgmma_smem_bytes"]

@@ -23,4 +23,4 @@ install_if_missing()
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA GPU (skips without one); run on the card "
-        "with `python -m pytest -m cuda tests/test_torch_kernels.py`")
+        "with `python -m pytest -m cuda tests/test_torch_cuda.py`")

@@ -54,7 +54,8 @@ def _t(x):
 # B4 / B5 plain versions against the Pallas kernels (interpret mode)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("nr,k,cols", [(6, 3, 50), (150, 8, 300), (7, 5, 129)])
+@pytest.mark.parametrize("nr,k,cols", [(6, 3, 50), (150, 8, 300), (7, 5, 129),
+                                       (10, 64, 300), (5, 17, 33), (3, 16, 7)])
 def test_encode_plain_matches_pallas_interpret(nr, k, cols):
     rng = np.random.default_rng(nr + k)
     g = rng.normal(size=(nr, k)).astype(np.float32)
@@ -107,6 +108,16 @@ def test_coded_gradient_footprint_raises_in_both_packages():
         coded_gradient.coded_gradient_cuda(_t(x[:, :2]), _t(y[:, :2]), _t(w))
     with pytest.raises(ValueError, match="CUDA kernel"):
         lagrange_encode.encode_matrix_cuda(_t(w.T.copy()), _t(w))
+
+
+@pytest.mark.parametrize("k,cols,aligned,want", [
+    (8, 180_000, True, "stream"), (5, 180_000, True, "stream"), (16, 4, True, "stream"),
+    (5, 1001, True, "stream_scalar"), (8, 180_000, False, "stream_scalar"),
+    (1, 3, True, "stream_scalar"), (17, 1000, True, "tiled"), (64, 2048, True, "tiled"),
+    (0, 100, True, "tiled"),
+])
+def test_encode_route_follows_k_columns_and_alignment(k, cols, aligned, want):
+    assert lagrange_encode.encode_route(k, cols, aligned=aligned) == want
 
 
 # ---------------------------------------------------------------------------

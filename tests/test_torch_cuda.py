@@ -106,7 +106,9 @@ def test_gf_bmm_kernel_is_one_exact_launch(cuda_device, lead, m, c, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nr,k,cols", [(150, 5, 18_000), (37, 5, 1001), (150, 120, 513)])
+@pytest.mark.parametrize("nr,k,cols", [(150, 5, 18_000), (37, 5, 1001), (150, 120, 513),
+                                       (150, 8, 18_002), (13, 16, 1003), (150, 64, 2048),
+                                       (5, 64, 1001)])
 def test_encode_kernel_within_fp32_bound(cuda_device, nr, k, cols):
     from repro_torch.kernels import lagrange_encode as le
     gen = torch.Generator(device=cuda_device).manual_seed(nr + k)
@@ -161,15 +163,23 @@ def test_exact_coded_round_on_the_card_equals_the_cpu(cuda_device):
 # flash attention (B6) and the LM serving path
 # ---------------------------------------------------------------------------
 
-# (B, Hq, Hkv, Sq, Sk, D, causal, window)
+# (B, Hq, Hkv, Sq, Sk, D, causal, window); in 16 bits D = 64 and 128 take the
+# wgmma route, D = 16 and 32 the mma.sync route; float32 the FFMA route
 FLASH_CASES = [(2, 4, 2, 100, 100, 64, True, None),
                (1, 8, 1, 200, 300, 128, False, None),
-               (2, 4, 4, 257, 257, 32, True, 50)]
+               (2, 4, 4, 257, 257, 32, True, 50),
+               (2, 4, 2, 300, 300, 128, True, None),     # Sq, Sk not multiples of 128
+               (1, 4, 2, 300, 100, 128, True, None),     # Sq > Sk: 200 rows exactly 0
+               (2, 4, 2, 500, 500, 128, True, 100),      # sliding window
+               (2, 4, 1, 250, 250, 64, False, None),
+               (1, 8, 4, 16, 2048, 128, True, None)]     # decode-aligned Sq = 16 < Sk
+# the 16-bit types' rounding unit, which scales their bound
+FLASH_EPS = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16], ids=str)
 def test_flash_attention_kernel_matches_plain_version(cuda_device, case, dtype):
     from repro_torch.kernels import flash_attention as fa
     b, hq, hkv, sq, sk, d, causal, window = case
@@ -185,10 +195,26 @@ def test_flash_attention_kernel_matches_plain_version(cuda_device, case, dtype):
     diff = (got.float() - want.float()).abs()
     if dtype == torch.float32:        # reduction order: 1e-5 (P |V|)
         bound = 1e-5 * fa.flash_attention_ref(q, k, v.abs(), causal=causal, window=window)
-    else:                             # P rounded to bf16, and the output's rounding
-        bound = 2.0 ** -8 * (v.float().abs().amax() + want.float().abs())
+    else:                             # P rounded to the input type, and the output's rounding
+        bound = FLASH_EPS[dtype] * (v.float().abs().amax() + want.float().abs())
     assert got.stride() == q.stride()
     assert bool((diff <= bound).all()), float(diff.max())
+    if causal and sq > sk:                # rows that see no key: the l == 0 guard
+        assert not bool(got[:, :, :sq - sk].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128), (torch.float16, 64),
+                                     (torch.bfloat16, 32), (torch.float32, 128)], ids=str)
+def test_flash_attention_with_no_keys_is_zero(cuda_device, dtype, d):
+    """Sk = 0: every row sees no key, so the output is 0 on every route, as
+    in the plain version (the wgmma route's TMA takes no empty extent)."""
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.randn((2, 4, 37, d), device=cuda_device).to(dtype)
+    k = v = torch.empty((2, 2, 0, d), dtype=dtype, device=cuda_device)
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_ref(q, k, v, causal=True)
+    assert got.shape == q.shape and not bool(got.any()) and not bool(want.any())
 
 
 @pytest.mark.cuda

@@ -121,3 +121,79 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert fa.launch_counts() == before
     with pytest.raises(ValueError, match="CUDA kernel called on a cpu tensor"):
         fa.flash_attention_cuda(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA wrapper's Python side: the route and the TMA tensor maps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 128, "wgmma"), (torch.float16, 128, "wgmma"),
+    (torch.bfloat16, 64, "wgmma"), (torch.float16, 64, "wgmma"),
+    (torch.bfloat16, 32, "mma"), (torch.float16, 16, "mma"),
+    (torch.float32, 128, "ffma"), (torch.float32, 16, "ffma"),
+], ids=str)
+def test_the_route_follows_dtype_and_head_dimension_alone(dtype, d, want):
+    from repro_torch.kernels.flash_attention.kernel import flash_route
+    assert fa.flash_route(dtype, d) == flash_route(dtype, d) == want
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 96), (torch.float32, 192),
+                                     (torch.float64, 64), (torch.int8, 128)], ids=str)
+def test_the_route_refuses_what_no_kernel_takes(dtype, d):
+    with pytest.raises(ValueError):
+        fa.flash_route(dtype, d)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_tma_geometry_reads_the_layers_transposed_views(d, dtype):
+    b, s, h = 3, 200, 8
+    x = torch.zeros((b, s, h, d), dtype=dtype)          # (B, S, H, D) projection
+    view = x.transpose(1, 2)                             # (B, H, S, D), no copy
+    es = 2
+    assert fa.tma_geometry(view) == (d, s, h, b, h * d * es, d * es, s * h * d * es, 64, 128)
+    dense = view.contiguous()
+    assert fa.tma_geometry(dense) == (d, s, h, b, d * es, s * d * es, h * s * d * es, 64, 128)
+
+
+def test_tma_geometry_gives_extent_one_axes_their_dense_strides():
+    x = torch.zeros((1, 5, 1, 64), dtype=torch.bfloat16).as_strided(
+        (1, 1, 5, 64), (7, 3, 64, 1))                    # B = H = 1: odd strides, never followed
+    assert fa.tma_geometry(x) == (64, 5, 1, 1, 128, 5 * 64 * 2, 5 * 64 * 2, 64, 128)
+
+
+def _misaligned(d):
+    flat = torch.zeros(2 * 3 * 40 * d + 8, dtype=torch.bfloat16)
+    return flat[1:1 + 2 * 3 * 40 * d].view(2, 3, 40, d)   # base 2 bytes off
+
+
+@pytest.mark.parametrize("make,what", [
+    (lambda: torch.zeros((2, 3, 64, 40), dtype=torch.bfloat16).transpose(2, 3), "contiguous"),
+    (lambda: _misaligned(64), "aligned"),
+    (lambda: torch.zeros((2, 3, 40, 68), dtype=torch.bfloat16)[..., :64], "multiples of 16"),
+    (lambda: torch.zeros((2, 3, 40, 96), dtype=torch.bfloat16), "multiple of 64"),
+    (lambda: torch.zeros((2, 3, 0, 64), dtype=torch.bfloat16), "empty extent"),
+    (lambda: torch.zeros((2, 3, 40, 64), dtype=torch.float32), "16-bit"),
+], ids=["head-dim-strided", "misaligned-base", "odd-row-stride", "d96", "no-keys", "float32"])
+def test_tma_geometry_refuses_views_tma_cannot_take(make, what):
+    t = make()
+    with pytest.raises(ValueError, match=what):
+        fa.tma_geometry(t)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: torch.zeros((2, 3, 64, 40), dtype=torch.bfloat16).transpose(2, 3),
+    lambda: _misaligned(64),
+    lambda: torch.zeros((2, 3, 40, 68), dtype=torch.bfloat16)[..., :64],
+], ids=["head-dim-strided", "misaligned-base", "odd-row-stride"])
+def test_views_tma_refuses_are_copied_before_the_kernel(make):
+    """``flash_attention`` copies what ``kernel_takes`` refuses, so a view
+    TMA cannot take never reaches the tensor map."""
+    from repro_torch.kernels.flash_attention.kernel import kernel_takes
+    from repro_torch.kernels.flash_attention.ops import kernel_view
+    t = make()
+    assert not kernel_takes(t)
+    copy = kernel_view(t)
+    assert kernel_takes(copy) and torch.equal(copy, t)
+    fa.tma_geometry(copy)
