@@ -781,8 +781,6 @@ def serve_lm() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import api
 
-    # float32 sums in every bf16 GEMM, as JAX's preferred_element_type asks
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     batch, prompt, steps = 4, 2048, 64
     checked_steps = (0, 21, 42, 63)
     cfg = get_config("qwen3_0_6b", attn_impl="flash")

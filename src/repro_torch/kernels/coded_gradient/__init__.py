@@ -1,6 +1,7 @@
 """Fused worker-side degree-2 gradient X~^T (X~ W - Y): plain version and
 the hand-written CUDA kernel (``csrc/coded_gradient.cu``)."""
 
-from .kernel import coded_gradient_cuda, launch_counts, reset_launch_counts  # noqa: F401
+from .kernel import (coded_gradient_cuda, launch_counts, reset_launch_counts,  # noqa: F401
+                     residual_path, shared_residual_limit)
 from .ops import coded_gradient  # noqa: F401
 from .ref import chunk_gradient_ref, coded_gradient_ref  # noqa: F401

@@ -3,9 +3,11 @@
 :func:`coded_gradient_cuda` replaces ``coded_gradient_pallas``; the CUDA
 source (``kernels/csrc/coded_gradient.cu``) states the design and bound.
 It keeps the JAX wrapper's footprint check (:func:`check_footprint`), so the
-same inputs raise ``ValueError`` in both packages, and adds the kernel's own
-limit: the (R, P) residual of a chunk must fit the 48 KB of shared memory a
-block takes without opting in (R * P <= 12 288).
+same inputs raise ``ValueError`` in both packages, and that is the only
+refusal: a chunk's (R, P) residual stays in the block's shared memory up to
+:func:`shared_residual_limit` floats (what the device lets a block opt in
+to, read at run time; 58 112 on the H100), and a larger one goes to a
+global scratch of nr * R * P floats that the wrapper allocates.
 
 Inputs are float32, contiguous, on one CUDA device.  The wrapper checks
 that, allocates its output with ``torch.empty``, launches on the current
@@ -23,7 +25,6 @@ from repro_torch.kernels import build
 
 # The JAX kernel's VMEM budget for one chunk's working set (its kernel.py).
 VMEM_BUDGET_BYTES = 12 * 1024 * 1024
-MAX_RESIDUAL = 48 * 1024 // 4
 
 _LAUNCHES = {"coded_gradient_cuda": 0}
 
@@ -58,12 +59,27 @@ def _library() -> ctypes.CDLL:
         lib = build.load("coded_gradient")
         lib.coded_gradient.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]
         lib.coded_gradient.restype = ctypes.c_int
+        lib.coded_gradient_shared_limit.argtypes = []
+        lib.coded_gradient_shared_limit.restype = ctypes.c_longlong
         _LIB = lib
     return _LIB
+
+
+def shared_residual_limit() -> int:
+    """The largest R * P whose residual the kernel keeps in shared memory on
+    the current CUDA device (builds on first use); above it the residual
+    goes through global memory."""
+    return int(_library().coded_gradient_shared_limit())
+
+
+def residual_path(r_rows: int, p: int) -> str:
+    """``"shared"`` or ``"global"``: where the kernel keeps an (R, P)
+    residual on the current CUDA device."""
+    return "shared" if r_rows * p <= shared_residual_limit() else "global"
 
 
 def coded_gradient_cuda(x_tilde: torch.Tensor, y_tilde: torch.Tensor,
@@ -86,21 +102,23 @@ def coded_gradient_cuda(x_tilde: torch.Tensor, y_tilde: torch.Tensor,
             f"coded_gradient: bad shapes {tuple(x_tilde.shape)}, "
             f"{tuple(y_tilde.shape)}, {tuple(w.shape)} or devices")
     check_footprint(r_rows, c, p)
-    if r_rows * p > MAX_RESIDUAL:
-        raise ValueError(f"coded_gradient: residual R*P = {r_rows * p} exceeds "
-                         f"the kernel's {MAX_RESIDUAL} floats of shared memory")
     out = torch.empty((nr, c, p), dtype=torch.float32, device=w.device)
     if out.numel() == 0:
         return out
-    stream = torch.cuda.current_stream(w.device).cuda_stream
-    err = _library().coded_gradient(x_tilde.data_ptr(), y_tilde.data_ptr(),
-                                    w.data_ptr(), out.data_ptr(),
-                                    nr, r_rows, c, p, stream)
+    with torch.cuda.device(w.device):
+        scratch = None
+        if residual_path(r_rows, p) == "global":
+            scratch = torch.empty((nr, r_rows, p), dtype=torch.float32, device=w.device)
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        err = _library().coded_gradient(
+            x_tilde.data_ptr(), y_tilde.data_ptr(), w.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), nr, r_rows, c, p, stream)
     if err != 0:
         raise RuntimeError(f"coded_gradient kernel launch failed: cudaError {err}")
     _LAUNCHES["coded_gradient_cuda"] += 1
     return out
 
 
-__all__ = ["MAX_RESIDUAL", "VMEM_BUDGET_BYTES", "check_footprint",
-           "coded_gradient_cuda", "launch_counts", "reset_launch_counts"]
+__all__ = ["VMEM_BUDGET_BYTES", "check_footprint", "coded_gradient_cuda",
+           "launch_counts", "reset_launch_counts", "residual_path",
+           "shared_residual_limit"]

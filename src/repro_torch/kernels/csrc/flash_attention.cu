@@ -19,8 +19,16 @@
 //
 // Routes, chosen by the wrapper from the dtype and D alone (flash_route):
 //   wgmma  bf16 / fp16, D = 64 or 128 (the serving path): flash_wgmma_kernel
-//   mma    bf16 / fp16, D = 16 or 32: flash_mma_kernel
-//   ffma   float32, any D: flash_f32_kernel
+//   mma    bf16 / fp16, any other D from 1 to 256: flash_mma_kernel
+//   ffma   float32, D from 1 to 256: flash_f32_kernel
+// The mma and ffma kernels are instantiated at D = 16, 32, 64, 96, 128, 160,
+// 192 and 256 (kHeadDims); a head dimension d between two of them runs the
+// next one up. Its columns past d are loaded as zeros and never stored:
+// zeros change neither q . k nor the kept columns of P V, so the result is
+// the function's own. Where d is a whole number of 16-byte vectors and every
+// row is 16-byte aligned (Params::vec), tiles move as 16-byte vectors;
+// otherwise element by element. Their K and V tiles sit in dynamic shared
+// memory, opted in above 48 KB (D >= 192).
 //
 // Layout. Every tensor is read through its own (batch, head, sequence)
 // strides with the last axis contiguous, so the (B, H, S, D) views that the
@@ -78,10 +86,11 @@
 // output's own rounding to bf16), row by row, against flash_attention_ref;
 // the TPU kernel keeps P in float32.
 //
-// mma route (D = 16, 32): four warps of 16 query rows; each 64-key tile of
-// K and V is loaded synchronously into shared memory (rows padded by 16
-// bytes), S and O on mma.sync.m16n8k16, V's fragments from ldmatrix.trans.
-// The same P rounding and bound.
+// mma route (16-bit, D other than 64 and 128): four warps of 16 query rows;
+// each 64-key tile of K and V is loaded synchronously into shared memory
+// (rows padded by 16 bytes), S and O on mma.sync.m16n8k16, V's fragments from
+// ldmatrix.trans. The same P rounding and bound. A thread holds D / 2 floats
+// of O and D / 4 words of Q, so at D = 256 ptxas spills some of them.
 //
 // ffma route (float32): the same loop on FFMA in true float32 (no TF32
 // anywhere): a pair of lanes owns one query row, each holding half of q and
@@ -109,6 +118,7 @@ constexpr int kBKF = 32;         // keys a tile, float32
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kRouteFfma = 0, kRouteMma = 1, kRouteWgmma = 2;
+constexpr int kDefaultSmem = 48 * 1024;   // a block's shared memory without opting in
 
 struct Params {
   const void* q;
@@ -121,6 +131,8 @@ struct Params {
   int window;                    // < 0: no window
   float scale_log2;              // scale * log2(e)
   int heads, batch, q_tiles;     // the wgmma route's work items: q_tiles x heads x batch
+  int d;                         // the head dimension; the instantiation's D >= d
+  int vec;                       // d a whole number of 16-byte vectors, rows aligned
 };
 
 __device__ __forceinline__ bool visible(const Params& p, int pos, int key) {
@@ -152,8 +164,43 @@ __device__ __forceinline__ bool tile_full(const Params& p, const Range& r, int k
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / fp16 at D = 16 and 32 on mma.sync
+// bf16 / fp16 at D other than 64 and 128 on mma.sync
 // ---------------------------------------------------------------------------
+
+// Eight 16-bit elements from column c of a row (c < d), zero past d: one
+// 16-byte load when vec (then c + 8 <= d), else element by element.
+__device__ __forceinline__ uint4 load8_b16(const void* row, int c, int d, int vec) {
+  const uint16_t* r = static_cast<const uint16_t*>(row) + c;
+  if (vec) return *reinterpret_cast<const uint4*>(r);
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t lo = c + 2 * i < d ? r[2 * i] : 0u;
+    const uint32_t hi = c + 2 * i + 1 < d ? r[2 * i + 1] : 0u;
+    w[i] = lo | (hi << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Columns c and c + 1 (c even) of a row as one word, zero past d.
+__device__ __forceinline__ uint32_t load2_b16(const void* row, int c, int d, int vec) {
+  if (c >= d) return 0u;
+  const uint16_t* r = static_cast<const uint16_t*>(row) + c;
+  if (vec) return *reinterpret_cast<const uint32_t*>(r);
+  return (uint32_t)r[0] | (c + 1 < d ? (uint32_t)r[1] << 16 : 0u);
+}
+
+// Stores the word w as columns c and c + 1 of a row, what of them is below d.
+__device__ __forceinline__ void store2_b16(void* row, int c, int d, int vec, uint32_t w) {
+  if (c >= d) return;
+  uint16_t* r = static_cast<uint16_t*>(row) + c;
+  if (vec) {
+    *reinterpret_cast<uint32_t*>(r) = w;
+    return;
+  }
+  r[0] = (uint16_t)(w & 0xFFFFu);
+  if (c + 1 < d) r[1] = (uint16_t)(w >> 16);
+}
 
 template <typename T>
 struct Mma;
@@ -209,8 +256,9 @@ flash_mma_kernel(Params p) {
   constexpr int kKS = D / 16;      // k-steps of S = Q K^T
   constexpr int kNT = D / 8;       // n-tiles of O
   constexpr int kVec = D / 8;      // 16-byte vectors a row
-  __shared__ __align__(16) T ks[kBK * kStride];
-  __shared__ __align__(16) T vs[kBK * kStride];
+  extern __shared__ __align__(16) uint8_t tile_smem[];   // mma_smem_bytes<T, D>()
+  T* ks = reinterpret_cast<T*>(tile_smem);
+  T* vs = ks + kBK * kStride;
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const int h = blockIdx.y, b = blockIdx.z, hk = h / p.group;
@@ -225,17 +273,17 @@ flash_mma_kernel(Params p) {
   const int row1 = row0 + 8;
 
   // Q as A fragments: a0 (row0, c..c+1), a1 (row1, c..c+1), a2 (row0, c+8..),
-  // a3 (row1, c+8..), c = 16 kk + 2 t4; rows past Sq are zero.
+  // a3 (row1, c+8..), c = 16 kk + 2 t4; rows past Sq and columns past d are zero.
   uint32_t qf[kKS][4];
 #pragma unroll
   for (int kk = 0; kk < kKS; ++kk) {
     const int c = kk * 16 + t4 * 2;
-    const T* r0p = qg + row0 * p.q_ss + c;
-    const T* r1p = qg + row1 * p.q_ss + c;
-    qf[kk][0] = row0 < p.sq ? *reinterpret_cast<const uint32_t*>(r0p) : 0u;
-    qf[kk][1] = row1 < p.sq ? *reinterpret_cast<const uint32_t*>(r1p) : 0u;
-    qf[kk][2] = row0 < p.sq ? *reinterpret_cast<const uint32_t*>(r0p + 8) : 0u;
-    qf[kk][3] = row1 < p.sq ? *reinterpret_cast<const uint32_t*>(r1p + 8) : 0u;
+    const T* r0p = qg + row0 * p.q_ss;
+    const T* r1p = qg + row1 * p.q_ss;
+    qf[kk][0] = row0 < p.sq ? load2_b16(r0p, c, p.d, p.vec) : 0u;
+    qf[kk][1] = row1 < p.sq ? load2_b16(r1p, c, p.d, p.vec) : 0u;
+    qf[kk][2] = row0 < p.sq ? load2_b16(r0p, c + 8, p.d, p.vec) : 0u;
+    qf[kk][3] = row1 < p.sq ? load2_b16(r1p, c + 8, p.d, p.vec) : 0u;
   }
 
   float acc[kNT][4];
@@ -250,9 +298,9 @@ flash_mma_kernel(Params p) {
     for (int e = threadIdx.x; e < kBK * kVec; e += kThreads) {
       const int row = e / kVec, c = (e % kVec) * 8;
       uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (k0 + row < p.sk) {
-        kv = *reinterpret_cast<const uint4*>(kg + (k0 + row) * p.k_ss + c);
-        vv = *reinterpret_cast<const uint4*>(vg + (k0 + row) * p.v_ss + c);
+      if (k0 + row < p.sk && c < p.d) {
+        kv = load8_b16(kg + (k0 + row) * p.k_ss, c, p.d, p.vec);
+        vv = load8_b16(vg + (k0 + row) * p.v_ss, c, p.d, p.vec);
       }
       *reinterpret_cast<uint4*>(ks + row * kStride + c) = kv;
       *reinterpret_cast<uint4*>(vs + row * kStride + c) = vv;
@@ -348,11 +396,11 @@ flash_mma_kernel(Params p) {
   for (int n = 0; n < kNT; ++n) {
     const int c = n * 8 + t4 * 2;
     if (row0 < p.sq)
-      *reinterpret_cast<uint32_t*>(og + row0 * p.o_ss + c) =
-          Mma<T>::pack(acc[n][0] / l[0], acc[n][1] / l[0]);
+      store2_b16(og + row0 * p.o_ss, c, p.d, p.vec,
+                 Mma<T>::pack(acc[n][0] / l[0], acc[n][1] / l[0]));
     if (row1 < p.sq)
-      *reinterpret_cast<uint32_t*>(og + row1 * p.o_ss + c) =
-          Mma<T>::pack(acc[n][2] / l[1], acc[n][3] / l[1]);
+      store2_b16(og + row1 * p.o_ss, c, p.d, p.vec,
+                 Mma<T>::pack(acc[n][2] / l[1], acc[n][3] / l[1]));
   }
 }
 
@@ -360,13 +408,22 @@ flash_mma_kernel(Params p) {
 // float32 on FFMA
 // ---------------------------------------------------------------------------
 
+// Four floats from column c of a row (c < d), zero past d: one 16-byte load
+// when vec (then c + 4 <= d), else element by element.
+__device__ __forceinline__ float4 load4_f32(const float* row, int c, int d, int vec) {
+  if (vec) return *reinterpret_cast<const float4*>(row + c);
+  return make_float4(row[c], c + 1 < d ? row[c + 1] : 0.f, c + 2 < d ? row[c + 2] : 0.f,
+                     c + 3 < d ? row[c + 3] : 0.f);
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(Params p) {
   constexpr int kH = D / 2;            // a lane's half of a row
   constexpr int kStride = D + 8;       // words; the second half starts 4 later
-  __shared__ __align__(16) float ks[kBKF * kStride];
-  __shared__ __align__(16) float vs[kBKF * kStride];
+  extern __shared__ __align__(16) uint8_t tile_smem[];   // f32_smem_bytes<D>()
+  float* ks = reinterpret_cast<float*>(tile_smem);
+  float* vs = ks + kBKF * kStride;
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const int h = blockIdx.y, b = blockIdx.z, hk = h / p.group;
@@ -384,7 +441,7 @@ flash_f32_kernel(Params p) {
 #pragma unroll
   for (int d = 0; d < kH; d += 4) {
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < p.sq) x = *reinterpret_cast<const float4*>(qg + row * p.q_ss + half * kH + d);
+    if (row < p.sq && half * kH + d < p.d) x = load4_f32(qg + row * p.q_ss, half * kH + d, p.d, p.vec);
     q[d] = x.x; q[d + 1] = x.y; q[d + 2] = x.z; q[d + 3] = x.w;
     acc[d] = acc[d + 1] = acc[d + 2] = acc[d + 3] = 0.f;
   }
@@ -396,9 +453,9 @@ flash_f32_kernel(Params p) {
     for (int e = threadIdx.x; e < kBKF * (D / 4); e += kThreads) {
       const int kr = e / (D / 4), c = (e % (D / 4)) * 4;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (k0 + kr < p.sk) {
-        kv = *reinterpret_cast<const float4*>(kg + (k0 + kr) * p.k_ss + c);
-        vv = *reinterpret_cast<const float4*>(vg + (k0 + kr) * p.v_ss + c);
+      if (k0 + kr < p.sk && c < p.d) {
+        kv = load4_f32(kg + (k0 + kr) * p.k_ss, c, p.d, p.vec);
+        vv = load4_f32(vg + (k0 + kr) * p.v_ss, c, p.d, p.vec);
       }
       const int at = kr * kStride + c + (c >= kH ? 4 : 0);
       *reinterpret_cast<float4*>(ks + at) = kv;
@@ -456,10 +513,19 @@ flash_f32_kernel(Params p) {
 
   if (row < p.sq) {
     const float den = l == 0.f ? 1.f : l;
+    float* orow = og + row * p.o_ss;
 #pragma unroll
     for (int d = 0; d < kH; d += 4) {
-      *reinterpret_cast<float4*>(og + row * p.o_ss + half * kH + d) =
-          make_float4(acc[d] / den, acc[d + 1] / den, acc[d + 2] / den, acc[d + 3] / den);
+      const int c = half * kH + d;
+      if (c >= p.d) continue;
+      if (p.vec) {
+        *reinterpret_cast<float4*>(orow + c) =
+            make_float4(acc[d] / den, acc[d + 1] / den, acc[d + 2] / den, acc[d + 3] / den);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (c + i < p.d) orow[c + i] = acc[d + i] / den;
+      }
     }
   }
 }
@@ -1146,31 +1212,85 @@ int launch_wgmma(const Params& p, const unsigned long long* geom, int b, int hq,
   return (int)cudaGetLastError();
 }
 
+// The head dimensions the mma and ffma kernels are instantiated at.
+constexpr int kHeadDims[] = {16, 32, 64, 96, 128, 160, 192, 256};
+
+// The instantiation that runs head dimension d: the next one up (0: none).
+int head_dim_instance(int d) {
+  if (d < 1) return 0;
+  for (int D : kHeadDims)
+    if (d <= D) return D;
+  return 0;
+}
+
+// A grid of 64-row query tiles x heads x batch; `set` holds, per device,
+// whether the kernel's opt-in to `smem` bytes is made.
 template <typename K>
-int launch(K kernel, const Params& p, int b, int hq, cudaStream_t stream) {
+int launch(K kernel, int smem, bool* set, const Params& p, int b, int hq,
+           cudaStream_t stream) {
+  if (smem > kDefaultSmem) {
+    int device = 0;
+    const cudaError_t got = cudaGetDevice(&device);
+    if (got != cudaSuccess) return (int)got;
+    if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+    if (!set[device]) {
+      const cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      set[device] = true;
+    }
+  }
   const dim3 grid((unsigned)((p.sq + kBQ - 1) / kBQ), (unsigned)hq, (unsigned)b);
-  kernel<<<grid, kThreads, 0, stream>>>(p);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_mma(const Params& p, int b, int hq, cudaStream_t stream) {
+  static bool set[kMaxDevices] = {};
+  constexpr int kSmem = 2 * kBK * (D + 8) * (int)sizeof(T);   // K and V tiles
+  return launch(flash_mma_kernel<T, D>, kSmem, set, p, b, hq, stream);
+}
+
+template <int D>
+int launch_ffma(const Params& p, int b, int hq, cudaStream_t stream) {
+  static bool set[kMaxDevices] = {};
+  constexpr int kSmem = 2 * kBKF * (D + 8) * (int)sizeof(float);
+  return launch(flash_f32_kernel<D>, kSmem, set, p, b, hq, stream);
 }
 
 template <typename T>
 int launch_16bit(const Params& p, int route, const unsigned long long* geom, int b, int hq,
                  int d, cudaStream_t stream) {
-  if (route == kRouteMma && d == 16) return launch(flash_mma_kernel<T, 16>, p, b, hq, stream);
-  if (route == kRouteMma && d == 32) return launch(flash_mma_kernel<T, 32>, p, b, hq, stream);
   if (route == kRouteWgmma && geom != nullptr) {
     if (d == 64) return launch_wgmma<T, 64>(p, geom, b, hq, stream);
     if (d == 128) return launch_wgmma<T, 128>(p, geom, b, hq, stream);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route != kRouteMma) return (int)cudaErrorInvalidValue;
+  switch (head_dim_instance(d)) {
+    case 16: return launch_mma<T, 16>(p, b, hq, stream);
+    case 32: return launch_mma<T, 32>(p, b, hq, stream);
+    case 64: return launch_mma<T, 64>(p, b, hq, stream);
+    case 96: return launch_mma<T, 96>(p, b, hq, stream);
+    case 128: return launch_mma<T, 128>(p, b, hq, stream);
+    case 160: return launch_mma<T, 160>(p, b, hq, stream);
+    case 192: return launch_mma<T, 192>(p, b, hq, stream);
+    case 256: return launch_mma<T, 256>(p, b, hq, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 int launch_f32(const Params& p, int b, int hq, int d, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch(flash_f32_kernel<16>, p, b, hq, stream);
-    case 32: return launch(flash_f32_kernel<32>, p, b, hq, stream);
-    case 64: return launch(flash_f32_kernel<64>, p, b, hq, stream);
-    case 128: return launch(flash_f32_kernel<128>, p, b, hq, stream);
+  switch (head_dim_instance(d)) {
+    case 16: return launch_ffma<16>(p, b, hq, stream);
+    case 32: return launch_ffma<32>(p, b, hq, stream);
+    case 64: return launch_ffma<64>(p, b, hq, stream);
+    case 96: return launch_ffma<96>(p, b, hq, stream);
+    case 128: return launch_ffma<128>(p, b, hq, stream);
+    case 160: return launch_ffma<160>(p, b, hq, stream);
+    case 192: return launch_ffma<192>(p, b, hq, stream);
+    case 256: return launch_ffma<256>(p, b, hq, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1180,7 +1300,9 @@ int launch_f32(const Params& p, int b, int hq, int d, cudaStream_t stream) {
 // out = attention(q, k, v) on `stream`. dtype: 0 float32, 1 bfloat16,
 // 2 float16; route: 0 ffma, 1 mma, 2 wgmma (it must be the one flash_route
 // gives for dtype and d); strides in elements (batch, head, sequence; the
-// head dimension is contiguous); tma: the three tensor maps' geometry (27
+// head dimension is contiguous); vec: nonzero when d is a whole number of
+// 16-byte vectors and every row of the four tensors is 16-byte aligned (it
+// must be on the wgmma route); tma: the three tensor maps' geometry (27
 // values, q, k, v) on the wgmma route, else null; window < 0 means none.
 // Returns the cudaError_t of the launch (0 = success), -1 when the driver
 // offers no cuTensorMapEncodeTiled, -2 when it refuses a tensor map.
@@ -1190,7 +1312,7 @@ extern "C" int flash_attention_fwd(
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
-    long long o_sb, long long o_sh, long long o_ss,
+    long long o_sb, long long o_sh, long long o_ss, int vec,
     const unsigned long long* tma, int causal, int window, float scale, void* stream) {
   if (b <= 0 || hq <= 0 || sq <= 0) return 0;
   if (hkv <= 0 || hq % hkv != 0 || sk < 0 || hq > 65535 || b > 65535)
@@ -1208,6 +1330,9 @@ extern "C" int flash_attention_fwd(
   p.heads = hq;
   p.batch = b;
   p.q_tiles = (sq + kWgRows - 1) / kWgRows;
+  p.d = d;
+  p.vec = vec ? 1 : 0;
+  if (route == kRouteWgmma && !p.vec) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && route == kRouteFfma) return launch_f32(p, b, hq, d, st);
   if (dtype == 1) return launch_16bit<__nv_bfloat16>(p, route, tma, b, hq, d, st);
@@ -1222,3 +1347,6 @@ extern "C" int flash_attention_wgmma_smem_bytes(int d) {
   if (d == 128) return WgSmem<128>::kBytes;
   return 0;
 }
+
+// The head dimension of the mma / ffma instantiation that runs d (0: none).
+extern "C" int flash_attention_head_dim_instance(int d) { return head_dim_instance(d); }

@@ -6,8 +6,24 @@
 // kernels/gf/kernel.py) launch gf_matmul below; a 2-D product is a batch of 1.
 //
 // What it computes, for each batch index z:
-//   out[z] = a[z] @ b[z] mod p,  a[z] (m, c), b[z] (c, n), out[z] (m, n),
-// on int32 canonical residues in [0, p), row-major and contiguous.
+//   out[z] = (a[z] mod p) @ (b[z] mod p) mod p,  a[z] (m, c), b[z] (c, n),
+// out[z] (m, n) canonical int32 residues in [0, p), row-major and contiguous.
+// a and b are any int32 values, read as they lie through their element
+// strides (batch, row, column): one of the two inner axes of each must have
+// unit stride for the loads to coalesce (the wrapper copies other layouts).
+//
+// Operands as they lie. The exact coded round hands the kernel x~, already
+// canonical, and x~^T, a transposed view of it. Reducing them first (to_gf:
+// three full passes) and copying x~^T contiguous cost more than the products
+// themselves, so the kernel does both on the fly:
+//   * loaders: each operand's tile loader walks its unit-stride axis across
+//     consecutive threads, in one of two orders chosen by layout (the
+//     template flags kAK, a's k axis unit, and kBN, b's n axis unit). For
+//     x~^T (150, 3000, 60), strides (180 000, 1, 3000), a k-row of a 512-row
+//     tile is then 2 KB contiguous;
+//   * canonicalising: every loaded v becomes v mod p in [0, p), the Python-
+//     sign remainder of to_gf (canonical below; its plain mirror is
+//     canonical_i32 in kernels/gf/ref.py).
 //
 // Design. The TPU has no 64-bit integer product, so the Pallas kernel builds
 // each product from four 16-bit limbs. Hopper multiplies two 32-bit integers
@@ -51,7 +67,10 @@
 // nearer than about 0.48 ms, five times the bound. The design keeps each
 // operand in a register for RM or RN terms so that the loads stay a small
 // share of the instruction stream. Folding once per four terms is the first
-// speed step; tensor cores (8-bit limbs on the int8 MMA) the next.
+// speed step; tensor cores (8-bit limbs on the int8 MMA) the next. The
+// narrow products of the exact round ((9000, 3000) @ (3000, 1), x~^T @ r)
+// move more bytes than they do terms: there the bound is the bytes of a and
+// b read once, and reading x~ as it lies is what the layout work buys.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,6 +85,26 @@ __device__ __forceinline__ uint32_t fold_term(uint32_t a, uint32_t b) {
   return ((uint32_t)z & kP) + (uint32_t)(z >> 31);
 }
 
+// v mod p in [0, p) for any int32 v, the Python-sign remainder of to_gf.
+// v = hi * 2^31 + lo with lo = v & p and hi = v >> 31 (arithmetic: 0 or -1);
+// 2^31 = 1 (mod p), so v = lo + hi (mod p), a value in [-1, p]. Only
+// v = -2^31 gives -1 (add p: p - 1) and only v = p gives p (subtract p: 0);
+// v = -1 gives lo = p, hi = -1: p - 1. No uint32 reinterpretation enters,
+// which would be off by 2^32 = 2 (mod p) for a negative v.
+__device__ __forceinline__ uint32_t canonical(int32_t v) {
+  int32_t x = (v & (int32_t)kP) + (v >> 31);
+  x = x < 0 ? x + (int32_t)kP : x;
+  x = x >= (int32_t)kP ? x - (int32_t)kP : x;
+  return (uint32_t)x;
+}
+
+// One operand: base pointer and element strides of its batch, row and
+// column axes.
+struct Operand {
+  const int32_t* p;
+  long long sb, sr, sc;
+};
+
 __device__ __forceinline__ uint32_t reduce_acc(uint64_t acc) {
   uint64_t x = (acc & kP) + (acc >> 31);      // < 2^31 + 2^33
   x = (x & kP) + (x >> 31);                   // < 2^31 + 8 < 2p
@@ -75,26 +114,26 @@ __device__ __forceinline__ uint32_t reduce_acc(uint64_t acc) {
 
 // Block of (TM / RM) x (TN / RN) threads; thread (ty, tx) owns rows
 // ty + i * (TM / RM) and columns tx + j * (TN / RN) of the output tile, so a
-// warp's stores to one row are contiguous.
-template <int TM, int TN, int RM, int RN>
+// warp's stores to one row are contiguous. kAK: a's k axis has unit stride
+// (else its m axis); kBN: b's n axis has unit stride (else its k axis).
+template <int TM, int TN, int RM, int RN, bool kAK, bool kBN>
 __global__ void __launch_bounds__((TM / RM) * (TN / RN))
-gf_matmul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-                 uint32_t* __restrict__ out,
+gf_matmul_kernel(Operand a, Operand b, uint32_t* __restrict__ out,
                  unsigned long long* __restrict__ scratch, int m, int c, int n,
                  int splits, int k_slice) {
   constexpr int TX = TN / RN;
   constexpr int TY = TM / RM;
   constexpr int THREADS = TX * TY;
-  // a tile, transposed: as[k][row]; the +1 pad spreads a row's 16 k values
-  // over 16 banks when it is stored
+  // tiles, a's transposed: as[k][row], bs[k][col]; the +1 pads spread a
+  // loader's k-walk over the banks when it stores
   __shared__ uint32_t as[kTK][TM + 1];
-  __shared__ uint32_t bs[kTK][TN];
+  __shared__ uint32_t bs[kTK][TN + 1];
 
   const long long z = blockIdx.z / splits;
   const int k_begin = (blockIdx.z % splits) * k_slice;
   const int k_end = min(c, k_begin + k_slice);
-  a += z * (long long)m * c;
-  b += z * (long long)c * n;
+  const int32_t* __restrict__ ap = a.p + z * a.sb;
+  const int32_t* __restrict__ bp = b.p + z * b.sb;
   out += z * (long long)m * n;
   if (scratch != nullptr) scratch += z * (long long)m * n;
   const int row0 = blockIdx.y * TM;
@@ -111,14 +150,16 @@ gf_matmul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
 
   for (int k0 = k_begin; k0 < k_end; k0 += kTK) {
     for (int e = tid; e < TM * kTK; e += THREADS) {
-      const int r = e / kTK, k = e % kTK;     // consecutive threads walk k
+      // consecutive threads walk a's unit-stride axis: k, or m
+      const int r = kAK ? e / kTK : e % TM, k = kAK ? e % kTK : e / TM;
       const int gr = row0 + r, gk = k0 + k;
-      as[k][r] = (gr < m && gk < k_end) ? a[(long long)gr * c + gk] : 0u;
+      as[k][r] = (gr < m && gk < k_end) ? canonical(ap[gr * a.sr + gk * a.sc]) : 0u;
     }
     for (int e = tid; e < kTK * TN; e += THREADS) {
-      const int k = e / TN, col = e % TN;     // consecutive threads walk n
+      // consecutive threads walk b's unit-stride axis: n, or k
+      const int k = kBN ? e / TN : e % kTK, col = kBN ? e % TN : e / kTK;
       const int gk = k0 + k, gc = col0 + col;
-      bs[k][col] = (gk < k_end && gc < n) ? b[(long long)gk * n + gc] : 0u;
+      bs[k][col] = (gk < k_end && gc < n) ? canonical(bp[gk * b.sr + gc * b.sc]) : 0u;
     }
     __syncthreads();
 #pragma unroll
@@ -182,8 +223,8 @@ int choose_splits(int batch, int m, int c, int n) {
   return (int)s;
 }
 
-template <int TM, int TN, int RM, int RN>
-int launch(const uint32_t* a, const uint32_t* b, uint32_t* out,
+template <int TM, int TN, int RM, int RN, bool kAK, bool kBN>
+int launch(const Operand& a, const Operand& b, uint32_t* out,
            unsigned long long* scratch, int batch, int m, int c, int n,
            int splits, cudaStream_t s) {
   const long long tiles_m = (m + TM - 1) / TM;
@@ -193,9 +234,26 @@ int launch(const uint32_t* a, const uint32_t* b, uint32_t* out,
   // a slice of whole kTK tiles
   const int k_slice = (int)(((long long)(c + splits - 1) / splits + kTK - 1) / kTK * kTK);
   dim3 grid((unsigned)tiles_n, (unsigned)tiles_m, (unsigned)(batch * splits));
-  gf_matmul_kernel<TM, TN, RM, RN><<<grid, (TM / RM) * (TN / RN), 0, s>>>(
+  gf_matmul_kernel<TM, TN, RM, RN, kAK, kBN><<<grid, (TM / RM) * (TN / RN), 0, s>>>(
       a, b, out, splits > 1 ? scratch : nullptr, m, c, n, splits, k_slice);
   return 0;
+}
+
+// The loader orders of one tile shape, chosen by the operands' layouts.
+template <int TM, int TN, int RM, int RN>
+int launch_tile(const Operand& a, const Operand& b, uint32_t* out,
+                unsigned long long* scratch, int batch, int m, int c, int n,
+                int splits, cudaStream_t s) {
+  // walk a's m axis only where it, not k, has unit stride; likewise b's k
+  const bool a_k = !(a.sr == 1 && a.sc != 1);
+  const bool b_n = !(b.sr == 1 && b.sc != 1);
+  if (a_k && b_n)
+    return launch<TM, TN, RM, RN, true, true>(a, b, out, scratch, batch, m, c, n, splits, s);
+  if (a_k)
+    return launch<TM, TN, RM, RN, true, false>(a, b, out, scratch, batch, m, c, n, splits, s);
+  if (b_n)
+    return launch<TM, TN, RM, RN, false, true>(a, b, out, scratch, batch, m, c, n, splits, s);
+  return launch<TM, TN, RM, RN, false, false>(a, b, out, scratch, batch, m, c, n, splits, s);
 }
 
 }  // namespace
@@ -207,27 +265,31 @@ extern "C" int gf_matmul_splits(int batch, int m, int c, int n) {
   return choose_splits(batch, m, c, n);
 }
 
-// out[z] = a[z] @ b[z] mod p for z < batch, on `stream`, in gf_matmul_splits
-// K slices (scratch: zeroed, batch * m * n uint64 values when that is above
-// 1, else unused). Returns the cudaError_t of the launches (0 = success).
+// out[z] = (a[z] mod p) @ (b[z] mod p) mod p for z < batch, on `stream`, in
+// gf_matmul_splits K slices (scratch: zeroed, batch * m * n uint64 values
+// when that is above 1, else unused). a and b are int32 of any value, read
+// through their element strides (batch, row, column); out is contiguous.
+// Returns the cudaError_t of the launches (0 = success).
 extern "C" int gf_matmul(const int* a, const int* b, int* out, void* scratch,
-                         int batch, int m, int c, int n, void* stream) {
+                         int batch, int m, int c, int n,
+                         long long a_sb, long long a_sr, long long a_sc,
+                         long long b_sb, long long b_sr, long long b_sc, void* stream) {
   if (batch <= 0 || m <= 0 || n <= 0) return 0;
   if (c < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint32_t* ua = reinterpret_cast<const uint32_t*>(a);
-  const uint32_t* ub = reinterpret_cast<const uint32_t*>(b);
+  const Operand ua{reinterpret_cast<const int32_t*>(a), a_sb, a_sr, a_sc};
+  const Operand ub{reinterpret_cast<const int32_t*>(b), b_sb, b_sr, b_sc};
   uint32_t* uo = reinterpret_cast<uint32_t*>(out);
   unsigned long long* us = static_cast<unsigned long long*>(scratch);
   const int splits = gf_matmul_splits(batch, m, c, n);
   if (splits > 1 && us == nullptr) return (int)cudaErrorInvalidValue;
   int err;
   if (n == 1) {
-    err = launch<512, 1, 2, 1>(ua, ub, uo, us, batch, m, c, n, splits, s);
+    err = launch_tile<512, 1, 2, 1>(ua, ub, uo, us, batch, m, c, n, splits, s);
   } else if (n <= 8) {
-    err = launch<256, 8, 4, 2>(ua, ub, uo, us, batch, m, c, n, splits, s);
+    err = launch_tile<256, 8, 4, 2>(ua, ub, uo, us, batch, m, c, n, splits, s);
   } else {
-    err = launch<64, 64, 4, 4>(ua, ub, uo, us, batch, m, c, n, splits, s);
+    err = launch_tile<64, 64, 4, 4>(ua, ub, uo, us, batch, m, c, n, splits, s);
   }
   if (err != 0) return err;
   if (splits > 1) {

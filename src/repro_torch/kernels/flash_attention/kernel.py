@@ -4,16 +4,20 @@
 source (``kernels/csrc/flash_attention.cu``) states the design and bound.
 
 It takes q (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D) of one float type on one
-CUDA device, with D in {16, 32, 64, 128} and Hq a multiple of Hkv.  The
-dtype and D alone choose the kernel (:func:`flash_route`): bfloat16 and
-float16 at D = 64 and 128 take the Hopper kernel (TMA ring, wgmma, warp
-specialised), at D = 16 and 32 the mma.sync kernel; float32 takes the FFMA
-kernel.  The tensors need not be contiguous: every route reads each tensor
-through its batch, head and sequence strides (the wgmma route through a
-4-D TMA tensor map built from them, :func:`tma_geometry`), so the
-(B, H, S, D) views that ``attention_train`` makes with ``transpose(1, 2)``
-go in without a copy; only the head dimension must be contiguous and each
-row 16-byte aligned.  The output takes q's layout (``torch.empty_like``), so
+CUDA device, with 1 <= D <= 256 and Hq a multiple of Hkv.  The dtype and D
+alone choose the kernel (:func:`flash_route`): bfloat16 and float16 at
+D = 64 and 128 take the Hopper kernel (TMA ring, wgmma, warp specialised),
+at any other D the mma.sync kernel; float32 takes the FFMA kernel.  The
+mma.sync and FFMA kernels are instantiated at :data:`HEAD_DIMS`, and a D
+between two of them runs the next one up (:func:`head_dim_instance`),
+with the columns past D read as zeros and never stored.  The tensors need
+not be contiguous: every route reads each tensor through its batch, head
+and sequence strides (the wgmma route through a 4-D TMA tensor map built
+from them, :func:`tma_geometry`), so the (B, H, S, D) views that
+``attention_train`` makes with ``transpose(1, 2)`` go in without a copy;
+only the head dimension must be contiguous, and, where D is a whole number
+of 16-byte vectors, each row 16-byte aligned (other D are read element by
+element).  The output takes q's layout (``torch.empty_like``), so
 the layer's transpose back is a view too.  The wrapper checks all that,
 launches on the current stream, raises if the launch or a tensor map is
 refused, and adds one to its launch count.  With no keys (Sk = 0) it
@@ -31,7 +35,9 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 64, 128)
+# the head dimensions the mma.sync and FFMA kernels are instantiated at
+HEAD_DIMS = (16, 32, 64, 96, 128, 160, 192, 256)
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 WGMMA_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 ROUTES = {"ffma": 0, "mma": 1, "wgmma": 2}
@@ -67,8 +73,8 @@ def _library() -> ctypes.CDLL:
         lib = build.load("flash_attention")
         lib.flash_attention_fwd.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 12
-            + [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int, ctypes.c_int,
-               ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int,
+               ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
         lib.flash_attention_fwd.restype = ctypes.c_int
         lib.flash_attention_wgmma_smem_bytes.argtypes = [ctypes.c_int]
         lib.flash_attention_wgmma_smem_bytes.restype = ctypes.c_int
@@ -76,12 +82,19 @@ def _library() -> ctypes.CDLL:
     return _LIB
 
 
+def head_dim_instance(d: int) -> int:
+    """The head dimension of the mma.sync / FFMA instantiation that runs
+    ``d``: the smallest of :data:`HEAD_DIMS` at or above it."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dimension {d} outside 1..{MAX_HEAD_DIM}")
+    return next(D for D in HEAD_DIMS if d <= D)
+
+
 def flash_route(dtype: torch.dtype, d: int) -> str:
     """The kernel that takes ``dtype`` at head dimension ``d``: ``"wgmma"``
-    for bfloat16 / float16 at D = 64 and 128, ``"mma"`` for them at D = 16
-    and 32, ``"ffma"`` for float32."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dimension {d} not in {HEAD_DIMS}")
+    for bfloat16 / float16 at D = 64 and 128, ``"mma"`` for them at any
+    other D up to 256, ``"ffma"`` for float32."""
+    head_dim_instance(d)                     # raises outside 1..256
     if dtype == torch.float32:
         return "ffma"
     if dtype in (torch.bfloat16, torch.float16):
@@ -134,13 +147,22 @@ def wgmma_smem_bytes(d: int) -> int:
     return int(_library().flash_attention_wgmma_smem_bytes(int(d)))
 
 
-def kernel_takes(t: torch.Tensor) -> bool:
-    """Can the kernel read ``t`` through its strides as it is: the last axis
-    contiguous and every row start 16-byte aligned?"""
+def vector_rows(t: torch.Tensor) -> bool:
+    """Is every row of ``t`` a whole number of 16-byte vectors starting on a
+    16-byte boundary, so that the kernels move it as vectors?"""
     per_vec = 16 // t.element_size()
-    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+    return (t.stride(-1) == 1 and t.shape[-1] % per_vec == 0 and t.data_ptr() % 16 == 0
             and all(s % per_vec == 0
                     for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1))
+
+
+def kernel_takes(t: torch.Tensor) -> bool:
+    """Can the kernel read ``t`` through its strides as it is: the last axis
+    contiguous and, where a row is a whole number of 16-byte vectors, every
+    row 16-byte aligned (other rows are read element by element)?"""
+    if t.stride(-1) != 1 and t.shape[-1] > 1:
+        return False
+    return t.shape[-1] % (16 // t.element_size()) != 0 or vector_rows(t)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -156,7 +178,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
         if not kernel_takes(t):
             raise ValueError(f"{name}: the head dimension must be contiguous and "
-                             f"rows 16-byte aligned, got strides {t.stride()}")
+                             f"rows of whole 16-byte vectors 16-byte aligned, got "
+                             f"strides {t.stride()}")
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     if (k.shape[0] != b or k.shape[3] != d or v.shape != k.shape
@@ -177,11 +200,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         tma = (ctypes.c_ulonglong * len(geom))(*geom)
     if scale is None:
         scale = float(d) ** -0.5
+    vec = all(vector_rows(t) for t in (q, k, v, out))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _library().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
         ROUTES[route], b, hq, hkv, sq, sk, d, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *out.stride()[:3], tma, int(bool(causal)),
+        *v.stride()[:3], *out.stride()[:3], int(vec), tma, int(bool(causal)),
         -1 if window is None else int(window), float(scale), stream)
     if err != 0:
         why = _HOST_ERRORS.get(err, f"cudaError {err}")
@@ -190,6 +214,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-__all__ = ["HEAD_DIMS", "ROUTES", "TMA_BOX", "WGMMA_HEAD_DIMS", "flash_attention_cuda",
-           "flash_route", "kernel_takes", "launch_counts", "reset_launch_counts",
-           "tma_geometry", "wgmma_smem_bytes"]
+__all__ = ["HEAD_DIMS", "MAX_HEAD_DIM", "ROUTES", "TMA_BOX", "WGMMA_HEAD_DIMS",
+           "flash_attention_cuda", "flash_route", "head_dim_instance", "kernel_takes",
+           "launch_counts", "reset_launch_counts", "tma_geometry", "vector_rows",
+           "wgmma_smem_bytes"]

@@ -16,9 +16,12 @@ from .ops import (  # noqa: F401
     matmul_gf_cuda,
     matmul_gf_dot,
     matmul_gf_ref,
+    operand_passes,
+    reset_operand_passes,
 )
 from .ref import (  # noqa: F401
     add_gf,
+    canonical_i32,
     from_gf,
     inv_gf,
     lagrange_basis_gf_ref,
@@ -28,8 +31,8 @@ from .ref import (  # noqa: F401
 )
 
 __all__ = [
-    "FIELD_P", "add_gf", "bmm_gf", "bmm_gf_cuda", "from_gf", "full_fp32_matmul", "inv_gf",
+    "FIELD_P", "add_gf", "bmm_gf", "bmm_gf_cuda", "canonical_i32", "from_gf", "full_fp32_matmul", "inv_gf",
     "lagrange_basis_gf", "lagrange_basis_gf_ref", "launch_counts",
     "matmul_gf", "matmul_gf_cuda", "matmul_gf_dot", "matmul_gf_ref", "mul_gf",
-    "reset_launch_counts", "sub_gf", "to_gf",
+    "operand_passes", "reset_launch_counts", "reset_operand_passes", "sub_gf", "to_gf",
 ]

@@ -7,12 +7,16 @@ states the design and bound); both replace ``matmul_gf_pallas``:
   * :func:`bmm_gf_cuda`    — (B, m, c) @ (B, c, n), the batch a grid axis of
     ONE launch.
 
-Inputs are int32 canonical residues in [0, p) (the ops layer reduces them
-with ``to_gf`` first), contiguous, on one CUDA device.  Each wrapper checks
-that, allocates its output with ``torch.empty``, launches on the current
-stream, raises if the launch reports an error, and adds one to its launch
-count.  It never falls back to the plain version: a tensor off the GPU
-raises.
+Inputs are int32 tensors of any values on one CUDA device: the kernel's
+loaders reduce each value mod p as they read it (the formula of
+:func:`~repro_torch.kernels.gf.ref.canonical_i32`), so already-canonical
+data pays no pass.  An operand goes in as it lies, through its element
+strides, when one of its two inner axes has unit stride (a row-major
+matrix, or a transposed view such as x~^T); any other layout is copied
+contiguous first (:func:`kernel_layout`).  Each wrapper checks the rest,
+allocates its output with ``torch.empty``, launches on the current stream,
+raises if the launch reports an error, and adds one to its launch count.
+It never falls back to the plain version: a tensor off the GPU raises.
 """
 
 from __future__ import annotations
@@ -45,11 +49,9 @@ def _library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = build.load("gf_matmul")
-        lib.gf_matmul.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
+        lib.gf_matmul.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6
+            + [ctypes.c_void_p])
         lib.gf_matmul.restype = ctypes.c_int
         lib.gf_matmul_splits.argtypes = [ctypes.c_int] * 4
         lib.gf_matmul_splits.restype = ctypes.c_int
@@ -57,14 +59,26 @@ def _library() -> ctypes.CDLL:
     return _LIB
 
 
-def _check(name: str, t: torch.Tensor, dim: int) -> None:
+def reads_as_it_lies(t: torch.Tensor) -> bool:
+    """Does one of the two inner axes of ``t`` have unit stride, so that the
+    kernel's loaders read it coalesced through its strides?"""
+    return t.stride(-1) == 1 or t.stride(-2) == 1
+
+
+def kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the kernel reads it as it lies
+    (:func:`reads_as_it_lies`), else a contiguous copy."""
+    return t if reads_as_it_lies(t) else t.contiguous()
+
+
+def _check(name: str, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t`` in a layout the kernel reads, after the wrapper's checks."""
     if t.device.type != "cuda":
         raise ValueError(f"CUDA kernel called on a {t.device} tensor ({name})")
     if t.dtype != torch.int32 or t.dim() != dim:
-        raise ValueError(f"{name} must be a {dim}-D int32 tensor of residues, "
+        raise ValueError(f"{name} must be a {dim}-D int32 tensor, "
                          f"got {t.dtype} {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    return kernel_layout(t)
 
 
 def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -88,7 +102,7 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = lib.gf_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                         None if scratch is None else scratch.data_ptr(),
-                        batch, m, c, n, stream)
+                        batch, m, c, n, *a.stride(), *b.stride(), stream)
     if err != 0:
         raise RuntimeError(f"gf_matmul kernel launch failed: cudaError {err}")
     _LAUNCHES[name] += 1
@@ -96,18 +110,19 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def matmul_gf_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(m, c) @ (c, n) int32 CUDA residues -> (m, n) residues mod p."""
-    _check("a", a, 2)
-    _check("b", b, 2)
+    """(m, c) @ (c, n) int32 CUDA tensors -> (m, n) residues mod p."""
+    a = _check("a", a, 2)
+    b = _check("b", b, 2)
     return _launch("matmul_gf_cuda", a[None], b[None])[0]
 
 
 def bmm_gf_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(B, m, c) @ (B, c, n) int32 CUDA residues -> (B, m, n), one launch."""
-    _check("a", a, 3)
-    _check("b", b, 3)
+    """(B, m, c) @ (B, c, n) int32 CUDA tensors -> (B, m, n) residues mod p,
+    one launch."""
+    a = _check("a", a, 3)
+    b = _check("b", b, 3)
     return _launch("bmm_gf_cuda", a, b)
 
 
-__all__ = ["bmm_gf_cuda", "launch_counts", "matmul_gf_cuda",
-           "reset_launch_counts"]
+__all__ = ["bmm_gf_cuda", "kernel_layout", "launch_counts", "matmul_gf_cuda",
+           "reads_as_it_lies", "reset_launch_counts"]

@@ -10,8 +10,12 @@ Entry points the coding layer uses:
 The route follows the tensor (:mod:`repro_torch.kernels.dispatch`), with no
 ``impl=`` or ``interpret=`` switch: a CUDA tensor goes to the hand-written
 kernel (``matmul_gf_cuda`` / ``bmm_gf_cuda``, one launch for a whole batch),
-a CPU tensor to :func:`matmul_gf_dot`, the JAX package's route off the TPU
-and the kernel's plain version:
+which takes an int32 operand as it lies (any values, any view with a
+unit-stride inner axis: it reduces mod p as it loads, so the round's x~ and
+its transposed view x~^T pay no ``to_gf`` pass and no copy); other integer
+dtypes go through ``to_gf`` first.  A CPU tensor goes to
+:func:`matmul_gf_dot`, the JAX package's route off the TPU and the kernel's
+plain version, after ``to_gf``:
 
   * residues are split into four 8-bit limbs and contracted as ONE
     (4m, kc) @ (kc, 4n) float32 GEMM per 256-wide K-chunk (256 * 255^2 <
@@ -36,7 +40,7 @@ import torch
 
 from repro_torch.kernels.dispatch import PLAIN, route
 
-from .kernel import bmm_gf_cuda, matmul_gf_cuda
+from .kernel import bmm_gf_cuda, matmul_gf_cuda, reads_as_it_lies
 from .ref import (FIELD_P, _norm, lagrange_basis_gf_ref, matmul_gf_ref,
                   to_gf)
 
@@ -95,15 +99,53 @@ def matmul_gf_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc.to(torch.int32)
 
 
+# Elements of operands the card route passed over before a launch: reduced
+# by to_gf (an integer dtype other than int32) or copied contiguous (a view
+# with no unit-stride inner axis).  The exact round's x~ must add to neither.
+_CARD_PASSES = {"to_gf": 0, "contiguous": 0}
+
+
+def operand_passes() -> dict[str, int]:
+    """Elements of card operands reduced by ``to_gf`` or copied contiguous
+    before a launch since the last :func:`reset_operand_passes`."""
+    return dict(_CARD_PASSES)
+
+
+def reset_operand_passes() -> None:
+    for name in _CARD_PASSES:
+        _CARD_PASSES[name] = 0
+
+
+def _card_operand(x) -> torch.Tensor:
+    """An operand for the kernel: an int32 tensor as it lies (the kernel
+    reduces it as it loads), a view it cannot read coalesced as a contiguous
+    copy, any other integer dtype through :func:`to_gf`."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.int32:
+        if reads_as_it_lies(x) or x.dim() < 2:
+            return x
+        _CARD_PASSES["contiguous"] += x.numel()
+        return x.contiguous()
+    x = to_gf(x)
+    _CARD_PASSES["to_gf"] += x.numel()
+    return x
+
+
+def _operands(a, b) -> tuple[torch.Tensor, torch.Tensor]:
+    """(a, b) as their route takes them: on the card (either is a CUDA
+    tensor) :func:`_card_operand`, else canonical residues from ``to_gf``."""
+    if any(isinstance(x, torch.Tensor) and x.device.type == "cuda" for x in (a, b)):
+        return _card_operand(a), _card_operand(b)
+    return to_gf(a), to_gf(b)
+
+
 def matmul_gf(a, b) -> torch.Tensor:
     """Exact (m, c) @ (c, n) mod p.  Any int dtype in, int32 residues out."""
-    a = to_gf(a)
-    b = to_gf(b)
+    a, b = _operands(a, b)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul_gf: bad shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     if route(a) == PLAIN:
         return matmul_gf_dot(a, b)
-    return matmul_gf_cuda(a.contiguous(), b.contiguous())
+    return matmul_gf_cuda(a, b)
 
 
 def bmm_gf(a, b) -> torch.Tensor:
@@ -114,8 +156,7 @@ def bmm_gf(a, b) -> torch.Tensor:
     card the whole batch is one kernel launch.  2-D inputs fall through to
     :func:`matmul_gf`.
     """
-    a = to_gf(a)
-    b = to_gf(b)
+    a, b = _operands(a, b)
     if a.dim() < 2 or b.dim() < 2 or a.dim() != b.dim():
         raise ValueError(f"bmm_gf: bad ranks {tuple(a.shape)} @ {tuple(b.shape)}")
     if a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[-2]:
@@ -125,9 +166,7 @@ def bmm_gf(a, b) -> torch.Tensor:
     if route(a) == PLAIN:
         return matmul_gf_dot(a, b)
     lead = a.shape[:-2]
-    a3 = a.reshape((-1,) + a.shape[-2:]).contiguous()
-    b3 = b.reshape((-1,) + b.shape[-2:]).contiguous()
-    out = bmm_gf_cuda(a3, b3)
+    out = bmm_gf_cuda(a.reshape((-1,) + a.shape[-2:]), b.reshape((-1,) + b.shape[-2:]))
     return out.reshape(lead + out.shape[-2:])
 
 
@@ -143,5 +182,6 @@ def lagrange_basis_gf(eval_pts, nodes) -> torch.Tensor:
 
 __all__ = [
     "FIELD_P", "bmm_gf", "bmm_gf_cuda", "full_fp32_matmul", "lagrange_basis_gf",
-    "matmul_gf", "matmul_gf_cuda", "matmul_gf_dot", "matmul_gf_ref",
+    "matmul_gf", "matmul_gf_cuda", "matmul_gf_dot", "matmul_gf_ref", "operand_passes",
+    "reset_operand_passes",
 ]

@@ -85,6 +85,22 @@ def to_gf(x) -> torch.Tensor:
     return torch.remainder(x.to(torch.int64), FIELD_P).to(torch.int32)
 
 
+def canonical_i32(x: torch.Tensor) -> torch.Tensor:
+    """int32 v -> v mod p in [0, p), int32: :func:`to_gf` without int64.
+
+    The plain mirror of the CUDA kernel's loaders (``canonical`` in
+    ``kernels/csrc/gf_matmul.cu``): v = hi 2^31 + lo with lo = v & p and
+    hi = v >> 31 in {0, -1}; 2^31 = 1 (mod p), so v = lo + hi (mod p), a
+    value in [-1, p].  Only v = -2^31 gives -1 (+ p) and only v = p gives
+    p (- p).
+    """
+    if x.dtype != torch.int32:
+        raise TypeError(f"canonical_i32 takes int32, got {x.dtype}")
+    s = (x & FIELD_P) + (x >> 31)
+    s = torch.where(s < 0, s + FIELD_P, s)
+    return torch.where(s >= FIELD_P, s - FIELD_P, s)
+
+
 def from_gf(x: torch.Tensor) -> torch.Tensor:
     """Canonical residues -> int32 (values < p < 2^31 always fit)."""
     return x.to(torch.int32)
@@ -215,6 +231,6 @@ def lagrange_basis_gf_ref(eval_pts, nodes) -> torch.Tensor:
 
 
 __all__ = [
-    "FIELD_P", "add_gf", "fold31", "from_gf", "inv_gf", "lagrange_basis_gf_ref",
+    "FIELD_P", "add_gf", "canonical_i32", "fold31", "from_gf", "inv_gf", "lagrange_basis_gf_ref",
     "matmul_gf_ref", "mul_gf", "norm31", "rot_gf", "sub_gf", "to_gf",
 ]

@@ -3,7 +3,8 @@ builders (``repro/models/api.py``).
 
   * :func:`get_model`         — family -> (init_params, prefill, decode_step,
                                 init_cache); the dense ``lm`` family only;
-  * :func:`make_prefill_step` / :func:`make_serve_step`;
+  * :func:`make_prefill_step` / :func:`make_serve_step` — each call runs
+                                under :func:`float32_split_k_sums`;
   * :func:`make_batch`        — a random batch from a ``torch.Generator``.
 
 Training (``train_loss``, ``make_train_step``, ``optim``), the input specs
@@ -12,6 +13,7 @@ and the sharding rules wait for later slices.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, NamedTuple
 
@@ -64,6 +66,24 @@ def make_batch(cfg: ArchConfig, cell: ShapeCell, generator: torch.Generator,
     return {"next_token": draw(cell.global_batch)}
 
 
+@contextlib.contextmanager
+def float32_split_k_sums():
+    """bf16 GEMMs add their split-K partials in float32 inside the block.
+
+    PyTorch lets cuBLAS add them in bf16 by default
+    (``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``);
+    the JAX package asks for float32 (``preferred_element_type``).  The flag
+    is process-wide, so the caller's value is put back on the way out.
+    """
+    flags = torch.backends.cuda.matmul
+    before = flags.allow_bf16_reduced_precision_reduction
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = before
+
+
 def make_prefill_step(cfg: ArchConfig, *, max_len: int | None = None,
                       attn_impl: str | None = None):
     """(params, batch) -> (last-position logits, cache).
@@ -79,7 +99,8 @@ def make_prefill_step(cfg: ArchConfig, *, max_len: int | None = None,
     model = get_model(cfg)
 
     def prefill_step(params, batch):
-        return model.prefill(params, batch, cfg, max_len=max_len)
+        with float32_split_k_sums():
+            return model.prefill(params, batch, cfg, max_len=max_len)
 
     return prefill_step
 
@@ -90,9 +111,10 @@ def make_serve_step(cfg: ArchConfig):
     model = get_model(cfg)
 
     def serve_step(params, cache, batch):
-        return model.decode_step(params, batch, cache, cfg)
+        with float32_split_k_sums():
+            return model.decode_step(params, batch, cache, cfg)
 
     return serve_step
 
 
-__all__ = ["Model", "get_model", "make_batch", "make_prefill_step", "make_serve_step"]
+__all__ = ["Model", "float32_split_k_sums", "get_model", "make_batch", "make_prefill_step", "make_serve_step"]

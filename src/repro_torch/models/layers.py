@@ -51,10 +51,12 @@ _F32 = torch.float32
 def dot(x: torch.Tensor, w: torch.Tensor, *, native_out: bool = False) -> torch.Tensor:
     """Matmul with float32 accumulation, output in x.dtype.
 
-    For bf16 operands ``torch.matmul`` accumulates in float32 (cuBLAS; keep
+    For bf16 operands ``torch.matmul`` accumulates in float32 (cuBLAS); the
+    step functions of ``models.api`` also turn
     ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
-    off for float32 split-K sums as well).  ``native_out`` is accepted for
-    the JAX signature and has no effect on one card.
+    off for their call (``api.float32_split_k_sums``), so split-K partials
+    are added in float32 too.  ``native_out`` is accepted for the JAX
+    signature and has no effect on one card.
     """
     del native_out
     if x.dtype == w.dtype:

@@ -74,7 +74,10 @@ def test_encode_plain_matches_pallas_interpret(nr, k, cols):
     np.testing.assert_allclose(got3.numpy(), want3, rtol=0, atol=float(bound.max()))
 
 
-@pytest.mark.parametrize("nr,r_rows,c,p", [(4, 6, 9, 1), (3, 5, 7, 2), (5, 12, 130, 1)])
+# (2, 4096, 8, 4): a 64 KB residual a chunk, past the 48 KB a block takes
+# without opting in, which the JAX wrapper accepts
+@pytest.mark.parametrize("nr,r_rows,c,p", [(4, 6, 9, 1), (3, 5, 7, 2), (5, 12, 130, 1),
+                                           (2, 4096, 8, 4)])
 def test_coded_gradient_plain_matches_pallas_interpret(nr, r_rows, c, p):
     rng = np.random.default_rng(nr * c)
     x = rng.normal(size=(nr, r_rows, c)).astype(np.float32)

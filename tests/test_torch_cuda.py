@@ -105,6 +105,59 @@ def test_gf_bmm_kernel_is_one_exact_launch(cuda_device, lead, m, c, n):
     assert torch.equal(got, gf.matmul_gf_dot(a, b))
 
 
+# int32 values the kernel's loaders must reduce: 2^32 = 2 (mod p), so a
+# uint32 reading of a negative value is not its residue
+_RAW_EDGES = [-(2**31), -1, P, -P, -2, 2**31 - 2, 0, 1]
+
+
+def _raw_int32(rng, shape):
+    """Any int32 values, mixed signs, with the edges planted at the front."""
+    x = rng.integers(-(2**31), 2**31, size=shape, dtype=np.int64)
+    flat = x.reshape(-1)
+    flat[: min(len(_RAW_EDGES), flat.size)] = _RAW_EDGES[: flat.size]
+    return torch.from_numpy(x.astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,n", [(37, 301, 19), (300, 600, 8), (900, 300, 1), (64, 70, 65)])
+def test_gf_matmul_kernel_reduces_any_int32(cuda_device, m, c, n):
+    from repro_torch.kernels import gf
+    rng = np.random.default_rng(m * c + n)
+    a, b = _raw_int32(rng, (m, c)).to(cuda_device), _raw_int32(rng, (c, n)).to(cuda_device)
+    gf.reset_operand_passes()
+    got = gf.matmul_gf(a, b)
+    assert gf.operand_passes() == {"to_gf": 0, "contiguous": 0}
+    assert torch.equal(got, gf.matmul_gf_dot(gf.to_gf(a), gf.to_gf(b)))
+    assert torch.equal(gf.matmul_gf_cuda(a, b), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nr,rows,cols,d", [(150, 60, 300, 1), (7, 33, 130, 3), (4, 600, 70, 9)])
+def test_gf_kernel_reads_the_transposed_round_operand_as_it_lies(cuda_device, nr, rows, cols, d):
+    """x~^T r as the deg-2 round passes it: x~^T a transposed view, read
+    through its strides with no copy and no to_gf pass, bit-equal to the
+    limb route on canonical copies; the same on batch-strided views."""
+    from repro_torch.kernels import gf
+    rng = np.random.default_rng(nr + rows + cols + d)
+    x = _raw_int32(rng, (2 * nr, rows, cols)).to(cuda_device)
+    r = _raw_int32(rng, (2 * nr, rows, d)).to(cuda_device)
+    for xv, rv in ((x[:nr], r[:nr]), (x[::2], r[1::2])):
+        xt = xv.transpose(1, 2)
+        gf.reset_operand_passes()
+        before = gf.launch_counts()["bmm_gf_cuda"]
+        got = gf.bmm_gf(xt, rv)
+        assert gf.launch_counts()["bmm_gf_cuda"] == before + 1
+        assert gf.operand_passes() == {"to_gf": 0, "contiguous": 0}
+        assert torch.equal(got, gf.matmul_gf_dot(gf.to_gf(xt), gf.to_gf(rv)))
+    # a view with no unit-stride inner axis is copied first, and is exact too
+    odd = x[:, ::2, ::3]                                  # (2 nr, rows / 2, cols / 3)
+    w = _raw_int32(rng, (2 * nr, odd.shape[2], d)).to(cuda_device)
+    gf.reset_operand_passes()
+    got = gf.bmm_gf(odd, w)
+    assert gf.operand_passes() == {"to_gf": 0, "contiguous": odd.numel()}
+    assert torch.equal(got, gf.matmul_gf_dot(gf.to_gf(odd), gf.to_gf(w)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nr,k,cols", [(150, 5, 18_000), (37, 5, 1001), (150, 120, 513),
                                        (150, 8, 18_002), (13, 16, 1003), (150, 64, 2048),
@@ -122,9 +175,14 @@ def test_encode_kernel_within_fp32_bound(cuda_device, nr, k, cols):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nr,r_rows,c,p", [(150, 60, 3000, 1), (7, 13, 301, 3), (4, 1, 33, 2)])
-def test_coded_gradient_kernel_within_fp32_bound(cuda_device, nr, r_rows, c, p):
+@pytest.mark.parametrize("nr,r_rows,c,p,path", [
+    (150, 60, 3000, 1, "shared"), (7, 13, 301, 3, "shared"), (4, 1, 33, 2, "shared"),
+    (2, 4096, 8, 4, "shared"),        # a 64 KB residual: shared memory opted in
+    (2, 65_536, 8, 1, "global"),      # 256 KB: past what a block may have, through L2
+    (1, 200, 4, 70, "shared")])
+def test_coded_gradient_kernel_within_fp32_bound(cuda_device, nr, r_rows, c, p, path):
     from repro_torch.kernels import coded_gradient as cg
+    assert cg.residual_path(r_rows, p) == path
     gen = torch.Generator(device=cuda_device).manual_seed(c)
     x = torch.randn((nr, r_rows, c), generator=gen, device=cuda_device)
     y = torch.randn((nr, r_rows, p), generator=gen, device=cuda_device)
@@ -135,10 +193,11 @@ def test_coded_gradient_kernel_within_fp32_bound(cuda_device, nr, r_rows, c, p):
     ax = x.abs()
     bound = 1e-5 * (ax.transpose(1, 2) @ (ax @ w.abs() + y.abs()))
     assert bool(((got - cg.coded_gradient_ref(x, y, w)).abs() <= bound).all())
-    with pytest.raises(ValueError, match="shared memory"):
-        cg.coded_gradient_cuda(torch.zeros((1, 200, 4), device=cuda_device),
-                               torch.zeros((1, 200, 70), device=cuda_device),
-                               torch.zeros((4, 70), device=cuda_device))
+    # the one refusal left is the JAX wrapper's working-set check
+    with pytest.raises(ValueError, match="VMEM budget"):
+        cg.coded_gradient_cuda(torch.zeros((1, 1100, 3000), device=cuda_device),
+                               torch.zeros((1, 1100, 1), device=cuda_device),
+                               torch.zeros((3000, 1), device=cuda_device))
 
 
 @pytest.mark.cuda
@@ -164,7 +223,9 @@ def test_exact_coded_round_on_the_card_equals_the_cpu(cuda_device):
 # ---------------------------------------------------------------------------
 
 # (B, Hq, Hkv, Sq, Sk, D, causal, window); in 16 bits D = 64 and 128 take the
-# wgmma route, D = 16 and 32 the mma.sync route; float32 the FFMA route
+# wgmma route, every other D the mma.sync route; float32 the FFMA route.  D =
+# 96, 112, 192 are the repo's configs' head widths, 40 and 112 run the next
+# instantiation up (64, 128), 20 is read element by element
 FLASH_CASES = [(2, 4, 2, 100, 100, 64, True, None),
                (1, 8, 1, 200, 300, 128, False, None),
                (2, 4, 4, 257, 257, 32, True, 50),
@@ -172,7 +233,13 @@ FLASH_CASES = [(2, 4, 2, 100, 100, 64, True, None),
                (1, 4, 2, 300, 100, 128, True, None),     # Sq > Sk: 200 rows exactly 0
                (2, 4, 2, 500, 500, 128, True, 100),      # sliding window
                (2, 4, 1, 250, 250, 64, False, None),
-               (1, 8, 4, 16, 2048, 128, True, None)]     # decode-aligned Sq = 16 < Sk
+               (1, 8, 4, 16, 2048, 128, True, None),     # decode-aligned Sq = 16 < Sk
+               (2, 4, 2, 130, 130, 96, True, None),
+               (1, 4, 2, 200, 200, 112, True, 64),
+               (2, 2, 1, 100, 150, 192, False, None),
+               (1, 4, 4, 70, 70, 40, True, None),
+               (1, 2, 1, 50, 50, 20, True, None),
+               (1, 2, 2, 90, 90, 256, True, None)]
 # the 16-bit types' rounding unit, which scales their bound
 FLASH_EPS = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
 
@@ -233,7 +300,9 @@ def test_lm_smoke_serving_on_the_card_matches_the_cpu(cuda_device):
     prefill, serve = api.make_prefill_step(cfg, max_len=48), api.make_serve_step(cfg)
     on_card = copy.deepcopy(params).to(cuda_device)
     before = fa.launch_counts()["flash_attention_cuda"]
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     got, cache = prefill(on_card, {"tokens": tokens.to(cuda_device)})
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction == flag
     assert fa.launch_counts()["flash_attention_cuda"] == before + cfg.n_layers
     want, cache_cpu = prefill(params, {"tokens": tokens})
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)

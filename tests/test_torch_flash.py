@@ -32,6 +32,9 @@ CASES = [
     (4, 4, 100, 100, 64, True, 32),        # sliding window
     (4, 2, 16, 100, 64, True, None),       # Sq < Sk: decode-aligned queries
     (4, 2, 100, 40, 16, True, None),       # Sq > Sk: the first 60 rows see no key
+    (4, 2, 64, 64, 96, True, None),        # the repo's head widths past 128 and between
+    (2, 1, 50, 50, 112, True, None),       # instantiations: phi-3-vision 96, zamba2 112,
+    (2, 2, 40, 40, 192, False, None),      # nemotron-4 / xlstm 192
 ]
 
 
@@ -132,17 +135,45 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     (torch.bfloat16, 64, "wgmma"), (torch.float16, 64, "wgmma"),
     (torch.bfloat16, 32, "mma"), (torch.float16, 16, "mma"),
     (torch.float32, 128, "ffma"), (torch.float32, 16, "ffma"),
+    (torch.bfloat16, 96, "mma"), (torch.float32, 192, "ffma"),
+    (torch.float16, 112, "mma"), (torch.bfloat16, 192, "mma"), (torch.bfloat16, 256, "mma"),
+    (torch.bfloat16, 40, "mma"), (torch.float32, 40, "ffma"), (torch.float16, 1, "mma"),
+    (torch.float32, 256, "ffma"),
 ], ids=str)
 def test_the_route_follows_dtype_and_head_dimension_alone(dtype, d, want):
     from repro_torch.kernels.flash_attention.kernel import flash_route
     assert fa.flash_route(dtype, d) == flash_route(dtype, d) == want
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 96), (torch.float32, 192),
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 0), (torch.float32, 320),
                                      (torch.float64, 64), (torch.int8, 128)], ids=str)
 def test_the_route_refuses_what_no_kernel_takes(dtype, d):
     with pytest.raises(ValueError):
         fa.flash_route(dtype, d)
+
+
+@pytest.mark.parametrize("d,want", [(1, 16), (16, 16), (17, 32), (40, 64), (64, 64),
+                                    (96, 96), (112, 128), (129, 160), (192, 192),
+                                    (200, 256), (256, 256)])
+def test_a_head_dimension_runs_the_next_instantiation_up(d, want):
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
+    assert fa.head_dim_instance(d) == want and want in HEAD_DIMS
+    with pytest.raises(ValueError):
+        fa.head_dim_instance(257)
+
+
+@pytest.mark.parametrize("shape,dtype,takes,vectors", [
+    ((2, 3, 40, 96), torch.bfloat16, True, True),       # whole 16-byte vectors
+    ((2, 3, 40, 20), torch.bfloat16, True, False),      # 40-byte rows: element by element
+    ((2, 3, 40, 3), torch.float32, True, False),
+    ((2, 3, 40, 1), torch.float16, True, False),
+], ids=["d96", "d20", "f32-d3", "d1"])
+def test_rows_of_partial_vectors_are_read_element_by_element(shape, dtype, takes, vectors):
+    from repro_torch.kernels.flash_attention.kernel import kernel_takes, vector_rows
+    t = torch.zeros(shape, dtype=dtype)
+    assert kernel_takes(t) == takes and vector_rows(t) == vectors
+    if shape[-1] > 1:        # a head dimension that is not contiguous is never read
+        assert not kernel_takes(torch.zeros(shape[:3] + (2 * shape[3],), dtype=dtype)[..., ::2])
 
 
 @pytest.mark.parametrize("d", [64, 128])

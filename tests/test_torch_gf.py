@@ -11,6 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.core import lagrange as jlag
 from repro.kernels import gf as jgf
@@ -92,6 +94,36 @@ def test_to_gf_reduces_signed_ints_like_jax(dtype):
     np.testing.assert_array_equal(_i64(ref.to_gf(torch.from_numpy(x))), _i64(got))
 
 
+# the edges of the kernel loaders' reduction: 2^32 = 2 (mod p), so no uint32
+# reading of a negative value is its residue
+_INT32_EDGES = [-(2**31), -(2**31) + 1, -P, -P + 1, -2, -1, 0, 1, 2, P - 2, P - 1, P]
+
+
+@pytest.mark.parametrize("v", _INT32_EDGES)
+def test_canonical_i32_equals_to_gf_on_the_edges(v):
+    x = torch.tensor([v], dtype=torch.int32)
+    got = ref.canonical_i32(x)
+    assert got.dtype == torch.int32
+    assert int(got) == int(ref.to_gf(x)) == v % P
+    assert 0 <= int(got) < P
+
+
+@settings(max_examples=300, deadline=None)
+@given(v=st.integers(min_value=-(2**31), max_value=2**31 - 1))
+def test_canonical_i32_equals_to_gf_on_any_int32(v):
+    x = torch.tensor([v, -v - 1], dtype=torch.int32)         # -v - 1 stays in int32
+    np.testing.assert_array_equal(_i64(ref.canonical_i32(x)), _i64(ref.to_gf(x)))
+
+
+def test_canonical_i32_equals_jax_to_gf_on_a_block():
+    x = np.random.default_rng(5).integers(-(2**31), 2**31, size=4096).astype(np.int32)
+    x[: len(_INT32_EDGES)] = _INT32_EDGES
+    got = ref.canonical_i32(torch.from_numpy(x))
+    np.testing.assert_array_equal(_i64(got), _i64(jref.to_gf(jnp.asarray(x))))
+    with pytest.raises(TypeError):
+        ref.canonical_i32(torch.from_numpy(x.astype(np.int64)))
+
+
 @pytest.mark.parametrize("bad", [np.zeros(3, np.float32), torch.zeros(3),
                                  torch.zeros(3, dtype=torch.bool)])
 def test_to_gf_rejects_non_integers(bad):
@@ -159,6 +191,61 @@ def test_limb_route_refuses_reduced_precision_matmuls():
     finally:
         torch.set_float32_matmul_precision(before)
     assert gf.matmul_gf_dot(a, a).shape == (4, 4)
+
+
+def _x_tilde(nr=5, rows=6, cols=9):
+    rng = np.random.default_rng(nr + rows + cols)
+    return torch.from_numpy(_residues(rng, (nr, rows, cols)).astype(np.int32))
+
+
+@pytest.mark.parametrize("make,as_it_lies", [
+    (lambda x: x, True),                                  # x~, contiguous
+    (lambda x: x.transpose(1, 2), True),                  # x~^T: unit-stride rows
+    (lambda x: x[::2], True),                             # a strided batch
+    (lambda x: x[:, 1:, :7], True),                       # a window of rows and columns
+    (lambda x: x.transpose(1, 2)[::2, 1:], True),
+    (lambda x: x[:, ::2, ::2], False),                    # no unit-stride inner axis
+    (lambda x: x.transpose(0, 2)[:, ::2], False),
+], ids=["contiguous", "transposed", "batch-strided", "window", "transposed-strided",
+        "both-strided", "batch-inner"])
+def test_gf_kernel_layout_reads_views_as_they_lie_and_copies_the_rest(make, as_it_lies):
+    from repro_torch.kernels.gf.kernel import kernel_layout, reads_as_it_lies
+    from repro_torch.kernels.gf.ops import _card_operand
+    t = make(_x_tilde())
+    assert reads_as_it_lies(t) == as_it_lies
+    laid = kernel_layout(t)
+    assert torch.equal(laid, t)
+    assert (laid is t) == as_it_lies
+    if not as_it_lies:
+        assert laid.is_contiguous()
+    gf.reset_operand_passes()
+    card = _card_operand(t)
+    assert (card is t) == as_it_lies and torch.equal(card, t)
+    assert gf.operand_passes() == {"to_gf": 0, "contiguous": 0 if as_it_lies else t.numel()}
+
+
+def test_card_operands_of_other_integer_dtypes_go_through_to_gf():
+    from repro_torch.kernels.gf.ops import _card_operand
+    x = torch.tensor([[-1, P, 2**40, -(2**40) - 3]], dtype=torch.int64)
+    gf.reset_operand_passes()
+    got = _card_operand(x)
+    assert got.dtype == torch.int32 and torch.equal(got, ref.to_gf(x))
+    assert gf.operand_passes() == {"to_gf": 4, "contiguous": 0}
+    raw = torch.tensor([[-(2**31), -1, P]], dtype=torch.int32)
+    assert _card_operand(raw) is raw                      # the kernel reduces int32 itself
+
+
+def test_cpu_route_reduces_non_canonical_int32_views_like_numpy():
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(3, 40, 7)).astype(np.int32))
+    x.view(-1)[: len(_INT32_EDGES)] = torch.tensor(_INT32_EDGES, dtype=torch.int32)
+    r = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(3, 40, 2)).astype(np.int32))
+    gf.reset_operand_passes()
+    got = gf.bmm_gf(x.transpose(1, 2), r)                # x~^T r, the deg-2 product
+    x64, r64 = _i64(x) % P, _i64(r) % P
+    want = np.stack([jlag.matmul_modp(a.T, b) for a, b in zip(x64, r64)])
+    np.testing.assert_array_equal(_i64(got), want)
+    assert gf.operand_passes() == {"to_gf": 0, "contiguous": 0}    # counts the card only
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

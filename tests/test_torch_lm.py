@@ -210,3 +210,36 @@ def test_bf16_prefill_tracks_jax(jcfg, cfg, jparams, tokens, jax_prefills):
     err16 = float(np.abs(want - jax_prefills["flash"][0]).max())
     assert 0 < err16 < 1e-2
     assert float(np.abs(got.numpy() - want).max()) <= 2 * err16
+
+
+@pytest.mark.parametrize("before", [True, False])
+def test_step_functions_sum_bf16_split_k_in_float32_and_restore_the_flag(cfg, monkeypatch,
+                                                                         before):
+    """Each call of a step function turns cuBLAS's bf16 split-K sums off, as
+    JAX's ``preferred_element_type`` asks, and gives the caller's value back,
+    also when the step raises."""
+    flags = torch.backends.cuda.matmul
+    seen = []
+
+    def spy(*args, **kwargs):
+        seen.append(flags.allow_bf16_reduced_precision_reduction)
+        if len(seen) == 3:
+            raise RuntimeError("the step fails")
+        return "logits", "cache"
+
+    monkeypatch.setattr(lm, "prefill", spy)
+    monkeypatch.setattr(lm, "decode_step", spy)
+    saved = flags.allow_bf16_reduced_precision_reduction
+    try:
+        flags.allow_bf16_reduced_precision_reduction = before
+        prefill, serve = api.make_prefill_step(cfg, max_len=MAX_LEN), api.make_serve_step(cfg)
+        assert prefill(None, {}) == ("logits", "cache")
+        assert flags.allow_bf16_reduced_precision_reduction is before
+        assert serve(None, None, {}) == ("logits", "cache")
+        assert flags.allow_bf16_reduced_precision_reduction is before
+        with pytest.raises(RuntimeError, match="the step fails"):
+            prefill(None, {})
+        assert flags.allow_bf16_reduced_precision_reduction is before
+        assert seen == [False, False, False]
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = saved
