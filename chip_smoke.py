@@ -31,12 +31,19 @@ Phases, one line each (any failure raises and exits non-zero):
   6. the coding kernels against their plain versions on the card, at the
      coded path's shapes and one ragged shape each: the exact GF(p) matmul
      (``matmul_gf_cuda``, ``bmm_gf_cuda``; equal to ``matmul_gf_dot`` to the
-     bit, residues 0 and p-1 included), the Lagrange encode GEMM (its
+     bit, residues 0 and p-1 included) at every product of the exact rounds,
+     x~^T read as it lies, and any int32 (negative values, p) in place of
+     residues, each timed through the kernel alone, through ``gf.matmul_gf`` /
+     ``gf.bmm_gf`` and through the ``to_gf`` passes and copy the ops layer
+     made before it read operands as they lie (``passes_ms``); the
+     Lagrange encode GEMM (its
      streaming route at k = 8 and 5, the scalar stream at ragged columns,
      the tiled route at k = 64; each line names its route) and the fused
      coded gradient (within the float32 reduction-order bound
-     |diff| <= 1e-5 * (|A| |B|) elementwise), each timed beside its plain
-     version, its bound and its library call or composition of calls;
+     |diff| <= 1e-5 * (|A| |B|) elementwise; each line names where the
+     residual lives, shared memory or, past what a block may have, global),
+     each timed beside its plain version, its bound and its library call or
+     composition of calls;
   7. the coded path: the exact degree-1 round at the paper's EC2 scenario 1
      for every feasible LEA round of a 2 000-round rollout (the first 8
      rounds equal to the CPU plain route, one round equal to the numpy
@@ -47,7 +54,9 @@ Phases, one line each (any failure raises and exits non-zero):
      and the same regression at k = 8, read and not checked (its per-round
      relative errors and the rounds the guard rejects); each part counts
      its launches before its cross-checks, and every coding kernel's count
-     must rise;
+     must rise; the exact rounds print their ms per round and B3's launches,
+     and no operand of theirs may be copied contiguous or pass through
+     ``to_gf`` at x~'s size before B3 (``gf.operand_passes``);
   8. the ported example, ``repro_torch.examples.coded_regression.run()``;
   9. flash attention (B6) against its plain version ``flash_attention_ref``
      on the card: the serving prefill's shape q (4, 16, 2048, 128) against
@@ -55,8 +64,10 @@ Phases, one line each (any failure raises and exits non-zero):
      the SMOKE configs' D = 32, ragged Sq = Sk = 1000, non-causal,
      decode-aligned Sq = 16 < Sk = 2048, Sq > Sk with rows that must be 0,
      and the Mixtral attention widths (48 over 8 heads, 4096 tokens) with a
-     1024-token window; each line names the route its dtype and D take
-     (wgmma, mma or ffma); inputs are the (B, H, S, D) views of (B, S, H, D)
+     1024-token window, and the head widths of the repo's other configs
+     (phi-3-vision 96, zamba2 112, nemotron-4 and xLSTM 192) and D = 40;
+     each line names the route its dtype and D take (wgmma, mma or ffma) and
+     the instantiation that ran; inputs are the (B, H, S, D) views of (B, S, H, D)
      tensors, as the layer passes them.  bf16 and fp16 within
      eps max|v| + eps |ref| elementwise, eps the type's rounding unit (2^-8,
      2^-11: P rounded to the input type for P V, and the output's
@@ -68,7 +79,9 @@ Phases, one line each (any failure raises and exits non-zero):
      1024, vocab 151 936, already a multiple of the 128 it pads to, bf16,
      random weights from a seeded generator) with ``attn_impl="flash"`` serves 4 prompts of 2048
      tokens through ``make_prefill_step(cfg, max_len=2112)`` and 64 greedy
-     ``make_serve_step`` steps; B6 must launch 28 times (one per layer) in
+     ``make_serve_step`` steps (which sum bf16 split-K partials in float32
+     for their call and leave PyTorch's flag as they found it: checked);
+     B6 must launch 28 times (one per layer) in
      the prefill, the flash prefill's logits must be no further from a
      float32 copy of the model than 1.5 x the dense bf16 prefill's plus
      5e-3, four decode steps must match a fresh flash prefill over the same
@@ -297,6 +310,18 @@ def gf_residues(shape, gen: torch.Generator) -> torch.Tensor:
     return t
 
 
+# int32 values B3's loaders must reduce mod p: 2^32 = 2 (mod p)
+INT32_EDGES = [-(2**31), -1, P, -P, -2, 0, 1, P - 1]
+
+
+def any_int32(shape, gen: torch.Generator) -> torch.Tensor:
+    """Random int32 of both signs on the card, the edges planted."""
+    t = torch.randint(-(2**31), 2**31 - 1, shape, generator=gen, device="cuda",
+                      dtype=torch.int32)
+    t.view(-1)[:len(INT32_EDGES)] = torch.tensor(INT32_EDGES, dtype=torch.int32, device="cuda")
+    return t
+
+
 def check_coding_kernels() -> dict:
     """Phase 6: B3, B4 and B5 against their plain versions, timed."""
     from repro_torch.kernels import coded_gradient as cg
@@ -315,37 +340,58 @@ def check_coding_kernels() -> dict:
         if main:
             entry.update(timing)
 
-    # B3: (batch, m, c, n); the main shape of each wrapper first
+    # B3: (batch, m, c, n), a's layout, the values; the main shape of each
+    # wrapper first.  The exact rounds' products (core/coded_ops.py): the
+    # deg-1 worker shards and decode, the deg-2 residual, x~^T r (x~^T the
+    # transposed view the round passes) and decode; the encode of each.
     gf_cases = [
-        ("matmul_gf_cuda", "encode", (1, 150, 120, 75_000), True),
-        ("matmul_gf_cuda", "worker shards", (1, 3750, 3000, 8), False),
-        ("matmul_gf_cuda", "decode", (1, 120, 120, 200), False),
-        ("matmul_gf_cuda", "deg-2 residual", (1, 9000, 3000, 1), False),
-        ("matmul_gf_cuda", "deg-2 decode", (1, 50, 99, 3000), False),
-        ("matmul_gf_cuda", "ragged", (1, 37, 301, 19), False),
-        ("bmm_gf_cuda", "deg-2 gradient", (150, 3000, 60, 1), True),
-        ("bmm_gf_cuda", "ragged", (3, 37, 301, 5), False),
+        ("matmul_gf_cuda", "encode", (1, 150, 120, 75_000), "rows", "residues", True),
+        ("matmul_gf_cuda", "deg-1 worker shards", (1, 3750, 3000, 8), "rows", "residues", False),
+        ("matmul_gf_cuda", "deg-1 decode", (1, 120, 120, 200), "rows", "residues", False),
+        ("matmul_gf_cuda", "deg-2 residual", (1, 9000, 3000, 1), "rows", "residues", False),
+        ("matmul_gf_cuda", "deg-2 decode", (1, 50, 99, 3000), "rows", "residues", False),
+        ("matmul_gf_cuda", "ragged", (1, 37, 301, 19), "rows", "residues", False),
+        ("matmul_gf_cuda", "any int32", (1, 300, 600, 8), "rows", "int32", False),
+        ("bmm_gf_cuda", "deg-2 gradient, x~^T as it lies", (150, 3000, 60, 1), "transposed",
+         "residues", True),
+        ("bmm_gf_cuda", "deg-2 gradient, contiguous", (150, 3000, 60, 1), "rows", "residues",
+         False),
+        ("bmm_gf_cuda", "ragged", (3, 37, 301, 5), "rows", "residues", False),
+        ("bmm_gf_cuda", "any int32, transposed", (7, 130, 33, 3), "transposed", "int32", False),
     ]
-    for name, what, (batch, m, c, n), main in gf_cases:
+    for name, what, (batch, m, c, n), layout, values, main in gf_cases:
         lead = () if name == "matmul_gf_cuda" else (batch,)
-        a = gf_residues(lead + (m, c), gen)
-        b = gf_residues(lead + (c, n), gen)
-        a[..., 0, :] = P - 1                      # a row and a column of p-1
-        b[..., :, 0] = P - 1
+        draw = gf_residues if values == "residues" else any_int32
+        if layout == "transposed":               # a (B, m, c) view of a (B, c, m) tensor
+            a = draw(lead + (c, m), gen).transpose(-1, -2)
+        else:
+            a = draw(lead + (m, c), gen)
+        b = draw(lead + (c, n), gen)
+        if values == "residues":
+            a[..., 0, :] = P - 1                  # a row and a column of p-1
+            b[..., :, 0] = P - 1
         kern = getattr(gf, name)
+        ops = gf.matmul_gf if name == "matmul_gf_cuda" else gf.bmm_gf
         run = lambda: kern(a, b)
-        plain = lambda: gf.matmul_gf_dot(a, b)
+        through_ops = lambda: ops(a, b)
+        # what the ops layer ran before it read int32 operands as they lie
+        passes = lambda: kern(gf.to_gf(a).contiguous(), gf.to_gf(b).contiguous())
+        plain = lambda: gf.matmul_gf_dot(gf.to_gf(a), gf.to_gf(b))
         got, want = run(), plain()
         torch.cuda.synchronize()
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        if got.shape != want.shape or err != 0:
+        if got.shape != want.shape or err != 0 or not torch.equal(through_ops(), got):
             raise AssertionError(f"{name} {what} {(batch, m, c, n)}: max|diff| {err}")
         ms = time_ms(run)
+        ops_ms = time_ms(through_ops)
+        passes_ms = time_ms(passes)
         plain_ms = time_ms(plain, warm=1, runs=3)
         b_ms, b_by = _bound(4 * batch * (m * c + c * n + m * n),
                             batch * m * c * n * GF_INSTR_PER_TERM, INT_ISSUE_PER_S)
         log("kernel", name=name, case=json.dumps(what), shape=(batch, m, c, n),
-            max_abs_err=err, bound_by=b_by, **timing_fields(b_ms, ms=ms, plain_ms=plain_ms))
+            a_strides=tuple(a.stride()), values=values, max_abs_err=err, bound_by=b_by,
+            **timing_fields(b_ms, ms=ms, ops_ms=ops_ms, passes_ms=passes_ms,
+                            plain_ms=plain_ms))
         keep(name, err, main, **timing_entry(ms=ms, plain_ms=plain_ms, library_ms=None,
                                              composition_ms=plain_ms),
              bound_ms=b_ms, bound_by=b_by,
@@ -386,8 +432,10 @@ def check_coding_kernels() -> dict:
              shape=[nr, k, cols])
         del g, x, got, want, bound, diff
 
-    # B5: (nr, R, C, P)
-    for (nr, r_rows, c, p), main in (((150, 60, 3000, 1), True), ((7, 13, 301, 3), False)):
+    # B5: (nr, R, C, P); (2, 4096, 8, 4) keeps a 64 KB residual in shared
+    # memory opted in past 48 KB, (2, 65 536, 8, 1) a 256 KB one in global
+    for (nr, r_rows, c, p), main in (((150, 60, 3000, 1), True), ((7, 13, 301, 3), False),
+                                     ((2, 4096, 8, 4), False), ((2, 65_536, 8, 1), False)):
         x = torch.randn((nr, r_rows, c), generator=gen, device="cuda")
         y = torch.randn((nr, r_rows, p), generator=gen, device="cuda")
         w = torch.randn((c, p), generator=gen, device="cuda")
@@ -409,7 +457,7 @@ def check_coding_kernels() -> dict:
         b_ms, b_by = _bound(4 * (nr * r_rows * c + nr * r_rows * p + c * p + nr * c * p),
                             4 * nr * r_rows * c * p, FP32_FLOP_PER_S)
         log("kernel", name="coded_gradient_cuda", shape=(nr, r_rows, c, p),
-            max_abs_err=err, bound_by=b_by,
+            residual=cg.residual_path(r_rows, p), max_abs_err=err, bound_by=b_by,
             **timing_fields(b_ms, ms=ms, plain_ms=plain_ms, composition_ms=composition_ms))
         keep("coded_gradient_cuda", err, main,
              **timing_entry(ms=ms, plain_ms=plain_ms, library_ms=None,
@@ -443,8 +491,18 @@ def _feasible_rounds(masks: torch.Tensor, kstar: int) -> list[int]:
     return torch.nonzero(masks.sum(dim=-1) >= kstar)[:, 0].tolist()
 
 
+def no_x_tilde_passes(passes: dict[str, int], coded) -> dict[str, int]:
+    """``passes`` (``gf.operand_passes`` over the exact rounds) if no B3
+    operand was copied contiguous and none of x~'s size went through
+    ``to_gf``; raises otherwise."""
+    if passes["contiguous"] or passes["largest"] >= coded.x_tilde.numel():
+        raise AssertionError(f"the exact rounds passed over x~ before B3: {passes}")
+    return passes
+
+
 def exact_deg1(co, lg, throughput, LoadParams) -> None:
     """Phase 7a: the exact degree-1 round at EC2 scenario 1 (Sec. 6.2)."""
+    from repro_torch.kernels import gf
     spec = lg.CodeSpec(15, 10, 120, 1)                 # nr = 150, K* = 120
     rows, cols, d = 25, 3000, 8
     rng = np.random.default_rng(61)
@@ -464,6 +522,7 @@ def exact_deg1(co, lg, throughput, LoadParams) -> None:
     coded = co.encode_dataset_modp(spec, x, device="cuda")
     w_dev = torch.as_tensor(w, device="cuda")
     first, oks = [], []
+    gf.reset_operand_passes()
     for m in rounds:
         out, ok = co.coded_matmul_exact(coded, w_dev, masks[m])
         oks.append(ok)
@@ -472,6 +531,7 @@ def exact_deg1(co, lg, throughput, LoadParams) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = coding_launches()      # before the checks below launch more
+    passes = no_x_tilde_passes(gf.operand_passes(), coded)
     if not bool(torch.stack(oks).all()):
         raise AssertionError("an exact deg-1 round with >= K* results reported not ok")
     # the CPU plain route on the same data and the first 8 rounds
@@ -504,12 +564,13 @@ def exact_deg1(co, lg, throughput, LoadParams) -> None:
         lea_throughput=f"{float(success.float().mean()):.4f}", wall_s=f"{wall:.3f}",
         ms_per_round=f"{wall / max(len(rounds), 1) * 1e3:.3f}",
         cpu_rounds_equal=len(first), numpy_slice_equal=True,
-        launches=json.dumps(launches))
+        launches=json.dumps(launches), operand_passes=json.dumps(passes))
     return launches
 
 
 def exact_deg2(co, lg, throughput, LoadParams) -> None:
     """Phase 7b: the exact degree-2 gradient at Sec. 6.1 (Fig. 3 scenario 3)."""
+    from repro_torch.kernels import gf
     spec = lg.CodeSpec(15, 10, 50, 2)                  # nr = 150, K* = 99
     rows, cols = 60, 3000
     rng = np.random.default_rng(62)
@@ -527,6 +588,7 @@ def exact_deg2(co, lg, throughput, LoadParams) -> None:
     coded = co.encode_dataset_modp(spec, x, y, device="cuda")
     w_dev = torch.as_tensor(w, device="cuda")
     first, oks = [], []
+    gf.reset_operand_passes()
     for m in rounds:
         out, ok = co.coded_linear_gradient_modp(coded, w_dev, masks[m])
         oks.append(ok)
@@ -535,6 +597,7 @@ def exact_deg2(co, lg, throughput, LoadParams) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = coding_launches()
+    passes = no_x_tilde_passes(gf.operand_passes(), coded)
     if not bool(torch.stack(oks).all()):
         raise AssertionError("an exact deg-2 round with >= K* results reported not ok")
     coded_cpu = co.encode_dataset_modp(spec, x, y, device="cpu")
@@ -549,7 +612,8 @@ def exact_deg2(co, lg, throughput, LoadParams) -> None:
     log("exact_deg2", spec="CodeSpec(15,10,50,2)", x=(spec.k, rows, cols),
         rollout_rounds=2000, feasible_rounds=len(rounds), wall_s=f"{wall:.3f}",
         ms_per_round=f"{wall / max(len(rounds), 1) * 1e3:.3f}",
-        cpu_rounds_equal=len(first), launches=json.dumps(launches))
+        cpu_rounds_equal=len(first), launches=json.dumps(launches),
+        operand_passes=json.dumps(passes))
     return launches
 
 
@@ -678,7 +742,8 @@ def visible_pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:
 def check_flash_kernel() -> dict:
     """Phase 9: B6 against ``flash_attention_ref`` on the card, timed."""
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                      flash_attention_ref, flash_route)
+                                                      flash_attention_ref, flash_route,
+                                                      head_dim_instance)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(9)
@@ -697,6 +762,14 @@ def check_flash_kernel() -> dict:
         # Mixtral's attention widths; the window cut from its 4096 so that
         # masking matters at 4096 tokens and the plain version fits
         ("mixtral window", 1, 48, 8, 4096, 4096, 128, bf16, True, 1024, False),
+        # the head widths of the repo's other configs (mma.sync and FFMA
+        # instantiations past the wgmma route's 64 and 128), at their heads
+        ("phi-3-vision d96", 1, 32, 32, 2048, 2048, 96, bf16, True, None, False),
+        ("zamba2 d112", 1, 32, 32, 2048, 2048, 112, bf16, True, None, False),
+        ("nemotron-4 d192", 1, 96, 8, 1024, 1024, 192, bf16, True, None, False),
+        ("nemotron-4 d192 fp16", 1, 96, 8, 1024, 1024, 192, f16, True, None, False),
+        ("xlstm d192 f32", 1, 4, 4, 2048, 2048, 192, f32, True, None, False),
+        ("d40, the next instantiation up", 2, 8, 8, 1000, 1000, 40, bf16, True, None, False),
     ]
     record = {}
     for what, b, hq, hkv, sq, sk, d, dt, causal, window, main in cases:
@@ -736,6 +809,7 @@ def check_flash_kernel() -> dict:
                             FP32_FLOP_PER_S if dt == f32 else BF16_FLOP_PER_S)
         route = flash_route(dt, d)
         log("kernel", name="flash_attention_cuda", case=json.dumps(what), route=route,
+            instantiation=d if route == "wgmma" else head_dim_instance(d),
             q=(b, hq, sq, d), kv=(b, hkv, sk, d), dtype=str(dt).split(".")[-1],
             causal=causal, window=window, zero_rows=zero_rows, max_abs_err=err,
             tolerance=json.dumps(tol),
@@ -792,6 +866,8 @@ def serve_lm() -> int:
                             device="cuda")["tokens"]
     prefill = api.make_prefill_step(cfg, max_len=prompt + steps)
     serve = api.make_serve_step(cfg)
+    # the step functions set the bf16 split-K flag for their call only
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
 
     # warm-up (cuBLAS handles, the allocator): one prefill and one step
     logits, cache = prefill(params, {"tokens": tokens})
@@ -817,6 +893,8 @@ def serve_lm() -> int:
                 kept[t] = logits
     _, decode_s = timed(decode)
     launches = fa.launch_counts()["flash_attention_cuda"]
+    if torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction != flag:
+        raise AssertionError("a step function left the bf16 split-K flag changed")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if launches_prefill != cfg.n_layers or launches != cfg.n_layers:
         raise AssertionError(f"B6 launched {launches_prefill} times in the prefill and "
@@ -872,7 +950,8 @@ def serve_lm() -> int:
         peak_memory_gib=f"{peak_gib:.2f}", flash_launches=launches,
         err_flash_vs_f32=err_flash, err_dense_vs_f32=err_dense,
         decode_vs_prefill_max=worst, decode_vs_prefill_tol=tol,
-        checked_steps=json.dumps(list(kept)), gpu=json.dumps(nvidia_smi_line()))
+        checked_steps=json.dumps(list(kept)), bf16_split_k_flag_outside_steps=flag,
+        gpu=json.dumps(nvidia_smi_line()))
     for part, line in profile.items():
         log("serve_profile", part=part, **line)
     return launches

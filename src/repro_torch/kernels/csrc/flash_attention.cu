@@ -256,7 +256,7 @@ flash_mma_kernel(Params p) {
   constexpr int kKS = D / 16;      // k-steps of S = Q K^T
   constexpr int kNT = D / 8;       // n-tiles of O
   constexpr int kVec = D / 8;      // 16-byte vectors a row
-  extern __shared__ __align__(16) uint8_t tile_smem[];   // mma_smem_bytes<T, D>()
+  extern __shared__ __align__(16) uint8_t tile_smem[];   // K, V tiles: launch_mma's kSmem
   T* ks = reinterpret_cast<T*>(tile_smem);
   T* vs = ks + kBK * kStride;
 
@@ -421,7 +421,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(Params p) {
   constexpr int kH = D / 2;            // a lane's half of a row
   constexpr int kStride = D + 8;       // words; the second half starts 4 later
-  extern __shared__ __align__(16) uint8_t tile_smem[];   // f32_smem_bytes<D>()
+  extern __shared__ __align__(16) uint8_t tile_smem[];   // K, V tiles: launch_ffma's kSmem
   float* ks = reinterpret_cast<float*>(tile_smem);
   float* vs = ks + kBKF * kStride;
 

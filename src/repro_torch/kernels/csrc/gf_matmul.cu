@@ -18,20 +18,26 @@
 // themselves, so the kernel does both on the fly:
 //   * loaders: each operand's tile loader walks its unit-stride axis across
 //     consecutive threads, in one of two orders chosen by layout (the
-//     template flags kAK, a's k axis unit, and kBN, b's n axis unit). For
-//     x~^T (150, 3000, 60), strides (180 000, 1, 3000), a k-row of a 512-row
-//     tile is then 2 KB contiguous;
+//     template flags kAK, a's k axis unit, and kBN, b's n axis unit; the
+//     walk is TileWalk). For x~^T (150, 3000, 60), strides (180 000, 1,
+//     3000), a k-row of a 512-row tile is then 2 KB contiguous. A thread
+//     steps through its share of a tile by pointer increments and holds it
+//     in registers: the next k-tile's loads are all issued before the
+//     current tile is multiplied. The narrow products of the round do one
+//     term per element of a, so they are bound by how many loads are in
+//     flight, not by the products;
 //   * canonicalising: every loaded v becomes v mod p in [0, p), the Python-
 //     sign remainder of to_gf (canonical below; its plain mirror is
 //     canonical_i32 in kernels/gf/ref.py).
 //
 // Design. The TPU has no 64-bit integer product, so the Pallas kernel builds
 // each product from four 16-bit limbs. Hopper multiplies two 32-bit integers
-// into 64 bits natively, so each term is
-//     uint64_t z = (uint64_t)a * b;              // < 2^62
-//     uint32_t t = (z & p) + (z >> 31);          // one Mersenne fold, < 2^32
-// and the folded terms are summed in a uint64_t accumulator, exact for
-// fewer than 2^32 terms. At the end the accumulator is folded twice and
+// into 64 bits natively: each term is one 32 x 32 -> 64-bit multiply-add,
+//     acc += (uint64_t)a * b;                    // a, b < p: < 2^62
+// into a uint64_t accumulator, and once every four terms the accumulator is
+// folded, acc = (acc & p) + (acc >> 31) (the same residue, 2^31 = 1 mod p,
+// below 2^31 + 2^33), which leaves room for the next four products: 4 (p - 1)^2
+// = 2^64 - 2^35 + 16. At the end the accumulator is folded twice and
 // normalised once. The TPU kernel's output tile stays in VMEM across its K
 // visits; here a block owns an output tile in registers (RM x RN values per
 // thread) and loops over K itself, staging (TM x TK) tiles of a and (TK x TN)
@@ -60,17 +66,18 @@
 // issue at 128 a clock per SM: 132 x 128 x 1.98 GHz = 33.4e12 a second. The
 // encode of the EC2 round, (150, 120) @ (120, 75 000), is 1.35e9 terms,
 // about 0.091 ms, while its 81 MB of bytes take 0.024 ms, so the product is
-// bound by integer instructions, not memory. This kernel folds every term
-// before adding it: about six instructions a term by the source (a 32x32->64
-// multiply, an AND, a funnel shift, a 32-bit add and a 64-bit add, which is
-// two), most of them on the ALU pipe's 64 lanes a clock, so it cannot come
-// nearer than about 0.48 ms, five times the bound. The design keeps each
-// operand in a register for RM or RN terms so that the loads stay a small
-// share of the instruction stream. Folding once per four terms is the first
-// speed step; tensor cores (8-bit limbs on the int8 MMA) the next. The
-// narrow products of the exact round ((9000, 3000) @ (3000, 1), x~^T @ r)
-// move more bytes than they do terms: there the bound is the bytes of a and
-// b read once, and reading x~ as it lies is what the layout work buys.
+// bound by integer instructions, not memory. This kernel issues that
+// sequence: the loop over a k-tile is a fold of every accumulator, then four
+// multiply-adds, with each operand kept in a register for RM or RN terms so
+// that the shared-memory loads stay a small share of the instruction stream.
+// On an H100 SXM at 700 W this version takes 0.38 ms back to back at that
+// shape, 4.2x the bound (the first version, which folded every term before
+// adding it, about six instructions a term, took 0.56 ms); the issue rate of
+// IMAD.WIDE.U32 there is not measured. Tensor cores (8-bit limbs on the
+// int8 MMA) are the next step. The narrow products of the exact round
+// ((9000, 3000) @ (3000, 1), x~^T @ r) do one term per element of a: there
+// the bound is the bytes of a and b read once, and what counts is reading
+// x~ as it lies with enough loads in flight.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,10 +87,10 @@ namespace {
 constexpr uint32_t kP = 0x7FFFFFFFu;
 constexpr int kTK = 16;
 
-__device__ __forceinline__ uint32_t fold_term(uint32_t a, uint32_t b) {
-  const uint64_t z = (uint64_t)a * (uint64_t)b;
-  return ((uint32_t)z & kP) + (uint32_t)(z >> 31);
-}
+// One Mersenne fold of the accumulator: x = hi * 2^31 + lo -> lo + hi, the
+// same residue, below 2^31 + 2^33. Four products of canonical residues then
+// fit on top of it: 4 (p - 1)^2 = 2^64 - 2^35 + 16, and 2^31 + 2^33 < 2^35.
+__device__ __forceinline__ uint64_t fold(uint64_t x) { return (x & kP) + (x >> 31); }
 
 // v mod p in [0, p) for any int32 v, the Python-sign remainder of to_gf.
 // v = hi * 2^31 + lo with lo = v & p and hi = v >> 31 (arithmetic: 0 or -1);
@@ -103,6 +110,51 @@ __device__ __forceinline__ uint32_t canonical(int32_t v) {
 struct Operand {
   const int32_t* p;
   long long sb, sr, sc;
+};
+
+// How THREADS threads share the loads of a tile whose unit-stride axis u
+// has NU elements and whose other axis v has NV. Consecutive threads take
+// consecutive u. Wide (NU >= THREADS): thread tid takes u = tid + i THREADS
+// for every v. Narrow: u = tid % NU and v = tid / NU + j (THREADS / NU).
+template <int NU, int NV, int THREADS>
+struct TileWalk {
+  static constexpr bool kWide = NU >= THREADS;
+  static constexpr int kPerU = kWide ? NU / THREADS : 1;
+  static constexpr int kVStep = kWide ? 1 : THREADS / NU;
+  static constexpr int kPerV = (NV + kVStep - 1) / kVStep;
+  static constexpr int kLoads = kPerU * kPerV;
+  static_assert(kWide ? NU % THREADS == 0 : THREADS % NU == 0, "tile and block mismatch");
+
+  __device__ __forceinline__ static int u0(int tid) { return kWide ? tid : tid % NU; }
+  __device__ __forceinline__ static int v0(int tid) { return kWide ? 0 : tid / NU; }
+
+  // The tile position (u, v) of this thread's element t; false past NV.
+  __device__ __forceinline__ static bool element(int t, int tid, int* u, int* v) {
+    *u = u0(tid) + (t % kPerU) * THREADS;
+    *v = v0(tid) + (t / kPerU) * kVStep;
+    return *v < NV;
+  }
+
+  // This thread's elements of the tile at `corner` (element strides su
+  // along u, sv along v) into regs, as they lie; 0 where u >= nu or v >= nv
+  // (the operand's ragged edge). All loads are issued before any is used.
+  __device__ __forceinline__ static void load(int32_t* regs, const int32_t* corner,
+                                              long long su, long long sv, int nu, int nv,
+                                              int tid) {
+    const int u = u0(tid), v = v0(tid);
+    const int32_t* pv = corner + u * su + v * sv;
+#pragma unroll
+    for (int j = 0; j < kPerV; ++j) {
+      const int32_t* pu = pv;
+#pragma unroll
+      for (int i = 0; i < kPerU; ++i) {
+        const bool in = u + i * THREADS < nu && v + j * kVStep < nv && v + j * kVStep < NV;
+        regs[j * kPerU + i] = in ? *pu : 0;
+        pu += THREADS * su;
+      }
+      pv += kVStep * sv;
+    }
+  }
 };
 
 __device__ __forceinline__ uint32_t reduce_acc(uint64_t acc) {
@@ -148,31 +200,70 @@ gf_matmul_kernel(Operand a, Operand b, uint32_t* __restrict__ out,
 #pragma unroll
     for (int j = 0; j < RN; ++j) acc[i][j] = 0;
 
+  // Loads. Each thread holds its share of the next k-tile of a and b in
+  // registers, read as they lie: the loads of tile k0 + kTK are issued
+  // before tile k0 is multiplied, so they wait under its products; stored
+  // to shared memory they are reduced mod p (canonical). a's unit-stride
+  // axis is k (kAK) or m; b's is n (kBN) or k.
+  using AWalk = TileWalk<kAK ? kTK : TM, kAK ? TM : kTK, THREADS>;
+  using BWalk = TileWalk<kBN ? TN : kTK, kBN ? kTK : TN, THREADS>;
+  const long long a_su = kAK ? a.sc : a.sr, a_sv = kAK ? a.sr : a.sc;
+  const long long b_su = kBN ? b.sc : b.sr, b_sv = kBN ? b.sr : b.sc;
+  const int32_t* a_corner = ap + row0 * a.sr + k_begin * a.sc;
+  const int32_t* b_corner = bp + k_begin * b.sr + col0 * b.sc;
+  const int rows_left = m - row0, cols_left = n - col0;
+  int32_t la[AWalk::kLoads], lb[BWalk::kLoads];
+  if (k_begin < k_end) {
+    const int k_left = k_end - k_begin;
+    AWalk::load(la, a_corner, a_su, a_sv, kAK ? k_left : rows_left, kAK ? rows_left : k_left, tid);
+    BWalk::load(lb, b_corner, b_su, b_sv, kBN ? cols_left : k_left, kBN ? k_left : cols_left, tid);
+  }
   for (int k0 = k_begin; k0 < k_end; k0 += kTK) {
-    for (int e = tid; e < TM * kTK; e += THREADS) {
-      // consecutive threads walk a's unit-stride axis: k, or m
-      const int r = kAK ? e / kTK : e % TM, k = kAK ? e % kTK : e / TM;
-      const int gr = row0 + r, gk = k0 + k;
-      as[k][r] = (gr < m && gk < k_end) ? canonical(ap[gr * a.sr + gk * a.sc]) : 0u;
+#pragma unroll
+    for (int t = 0; t < AWalk::kLoads; ++t) {
+      int u, v;
+      if (AWalk::element(t, tid, &u, &v)) {
+        if (kAK) as[u][v] = canonical(la[t]);
+        else as[v][u] = canonical(la[t]);
+      }
     }
-    for (int e = tid; e < kTK * TN; e += THREADS) {
-      // consecutive threads walk b's unit-stride axis: n, or k
-      const int k = kBN ? e / TN : e % kTK, col = kBN ? e % TN : e / kTK;
-      const int gk = k0 + k, gc = col0 + col;
-      bs[k][col] = (gk < k_end && gc < n) ? canonical(bp[gk * b.sr + gc * b.sc]) : 0u;
+#pragma unroll
+    for (int t = 0; t < BWalk::kLoads; ++t) {
+      int u, v;
+      if (BWalk::element(t, tid, &u, &v)) {
+        if (kBN) bs[v][u] = canonical(lb[t]);
+        else bs[u][v] = canonical(lb[t]);
+      }
     }
     __syncthreads();
+    if (k0 + kTK < k_end) {   // the next tile's loads, in flight under this tile's products
+      const int k_left = k_end - (k0 + kTK);
+      a_corner += kTK * a.sc;
+      b_corner += kTK * b.sr;
+      AWalk::load(la, a_corner, a_su, a_sv, kAK ? k_left : rows_left, kAK ? rows_left : k_left,
+                  tid);
+      BWalk::load(lb, b_corner, b_su, b_sv, kBN ? cols_left : k_left, kBN ? k_left : cols_left,
+                  tid);
+    }
+    // a fold, then four raw products: one IMAD.WIDE.U32 a term
 #pragma unroll
-    for (int k = 0; k < kTK; ++k) {
-      uint32_t av[RM], bv[RN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) av[i] = as[k][ty + i * TY];
-#pragma unroll
-      for (int j = 0; j < RN; ++j) bv[j] = bs[k][tx + j * TX];
+    for (int k4 = 0; k4 < kTK; k4 += 4) {
 #pragma unroll
       for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] += fold_term(av[i], bv[j]);
+        for (int j = 0; j < RN; ++j) acc[i][j] = fold(acc[i][j]);
+#pragma unroll
+      for (int k = k4; k < k4 + 4; ++k) {
+        uint32_t av[RM], bv[RN];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) av[i] = as[k][ty + i * TY];
+#pragma unroll
+        for (int j = 0; j < RN; ++j) bv[j] = bs[k][tx + j * TX];
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < RN; ++j) acc[i][j] += (uint64_t)av[i] * bv[j];
+      }
     }
     __syncthreads();
   }

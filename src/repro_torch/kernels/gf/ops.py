@@ -101,19 +101,26 @@ def matmul_gf_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 # Elements of operands the card route passed over before a launch: reduced
 # by to_gf (an integer dtype other than int32) or copied contiguous (a view
-# with no unit-stride inner axis).  The exact round's x~ must add to neither.
-_CARD_PASSES = {"to_gf": 0, "contiguous": 0}
+# with no unit-stride inner axis), and the most in one pass.  The exact
+# round's x~ must add to neither.
+_CARD_PASSES = {"to_gf": 0, "contiguous": 0, "largest": 0}
 
 
 def operand_passes() -> dict[str, int]:
     """Elements of card operands reduced by ``to_gf`` or copied contiguous
-    before a launch since the last :func:`reset_operand_passes`."""
+    before a launch since the last :func:`reset_operand_passes`, and the
+    largest operand so passed over."""
     return dict(_CARD_PASSES)
 
 
 def reset_operand_passes() -> None:
     for name in _CARD_PASSES:
         _CARD_PASSES[name] = 0
+
+
+def _count_pass(kind: str, elements: int) -> None:
+    _CARD_PASSES[kind] += elements
+    _CARD_PASSES["largest"] = max(_CARD_PASSES["largest"], elements)
 
 
 def _card_operand(x) -> torch.Tensor:
@@ -123,10 +130,10 @@ def _card_operand(x) -> torch.Tensor:
     if isinstance(x, torch.Tensor) and x.dtype == torch.int32:
         if reads_as_it_lies(x) or x.dim() < 2:
             return x
-        _CARD_PASSES["contiguous"] += x.numel()
+        _count_pass("contiguous", x.numel())
         return x.contiguous()
     x = to_gf(x)
-    _CARD_PASSES["to_gf"] += x.numel()
+    _count_pass("to_gf", x.numel())
     return x
 
 

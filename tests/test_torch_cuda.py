@@ -126,7 +126,7 @@ def test_gf_matmul_kernel_reduces_any_int32(cuda_device, m, c, n):
     a, b = _raw_int32(rng, (m, c)).to(cuda_device), _raw_int32(rng, (c, n)).to(cuda_device)
     gf.reset_operand_passes()
     got = gf.matmul_gf(a, b)
-    assert gf.operand_passes() == {"to_gf": 0, "contiguous": 0}
+    assert gf.operand_passes() == {"to_gf": 0, "contiguous": 0, "largest": 0}
     assert torch.equal(got, gf.matmul_gf_dot(gf.to_gf(a), gf.to_gf(b)))
     assert torch.equal(gf.matmul_gf_cuda(a, b), got)
 
@@ -147,14 +147,15 @@ def test_gf_kernel_reads_the_transposed_round_operand_as_it_lies(cuda_device, nr
         before = gf.launch_counts()["bmm_gf_cuda"]
         got = gf.bmm_gf(xt, rv)
         assert gf.launch_counts()["bmm_gf_cuda"] == before + 1
-        assert gf.operand_passes() == {"to_gf": 0, "contiguous": 0}
+        assert gf.operand_passes() == {"to_gf": 0, "contiguous": 0, "largest": 0}
         assert torch.equal(got, gf.matmul_gf_dot(gf.to_gf(xt), gf.to_gf(rv)))
     # a view with no unit-stride inner axis is copied first, and is exact too
     odd = x[:, ::2, ::3]                                  # (2 nr, rows / 2, cols / 3)
     w = _raw_int32(rng, (2 * nr, odd.shape[2], d)).to(cuda_device)
     gf.reset_operand_passes()
     got = gf.bmm_gf(odd, w)
-    assert gf.operand_passes() == {"to_gf": 0, "contiguous": odd.numel()}
+    assert gf.operand_passes() == {"to_gf": 0, "contiguous": odd.numel(),
+                                   "largest": odd.numel()}
     assert torch.equal(got, gf.matmul_gf_dot(gf.to_gf(odd), gf.to_gf(w)))
 
 

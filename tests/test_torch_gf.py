@@ -221,7 +221,8 @@ def test_gf_kernel_layout_reads_views_as_they_lie_and_copies_the_rest(make, as_i
     gf.reset_operand_passes()
     card = _card_operand(t)
     assert (card is t) == as_it_lies and torch.equal(card, t)
-    assert gf.operand_passes() == {"to_gf": 0, "contiguous": 0 if as_it_lies else t.numel()}
+    copied = 0 if as_it_lies else t.numel()
+    assert gf.operand_passes() == {"to_gf": 0, "contiguous": copied, "largest": copied}
 
 
 def test_card_operands_of_other_integer_dtypes_go_through_to_gf():
@@ -230,7 +231,7 @@ def test_card_operands_of_other_integer_dtypes_go_through_to_gf():
     gf.reset_operand_passes()
     got = _card_operand(x)
     assert got.dtype == torch.int32 and torch.equal(got, ref.to_gf(x))
-    assert gf.operand_passes() == {"to_gf": 4, "contiguous": 0}
+    assert gf.operand_passes() == {"to_gf": 4, "contiguous": 0, "largest": 4}
     raw = torch.tensor([[-(2**31), -1, P]], dtype=torch.int32)
     assert _card_operand(raw) is raw                      # the kernel reduces int32 itself
 
@@ -245,7 +246,7 @@ def test_cpu_route_reduces_non_canonical_int32_views_like_numpy():
     x64, r64 = _i64(x) % P, _i64(r) % P
     want = np.stack([jlag.matmul_modp(a.T, b) for a, b in zip(x64, r64)])
     np.testing.assert_array_equal(_i64(got), want)
-    assert gf.operand_passes() == {"to_gf": 0, "contiguous": 0}    # counts the card only
+    assert gf.operand_passes() == {"to_gf": 0, "contiguous": 0, "largest": 0}   # the card only
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

@@ -1,6 +1,11 @@
 """Time the Lagrange encode (B4) and flash attention (B6) wrappers of one
 checkout of the port at their main shapes, beside the PyTorch call that
-computes the same function on the same inputs.  Needs one CUDA card.
+computes the same function on the same inputs, and the exact GF(p) matmul
+(B3) as the coded rounds call it: every product of the exact rounds through
+``gf.matmul_gf`` / ``gf.bmm_gf`` (the degree-2 gradient on the transposed
+view x~^T, as the round passes it), and one whole exact round of each degree (``coded_matmul_exact`` at EC2
+scenario 1, ``coded_linear_gradient_modp`` at Fig. 3 scenario 3, the shapes
+of ``chip_smoke.py`` phase 7).  Needs one CUDA card.
 
     python3 tools/kernel_ab.py --src <checkout>/src --label <name>
 
@@ -21,10 +26,14 @@ the order A B B A.  Each run builds its own kernels (``build/`` beside that
   host_us  host time to issue one call, mean over 200 calls issued back to
            back without waiting for the card;
   bound    the least time the card could take: bytes over 3.35 TB/s or
-           operations over the type's peak rate (H100 SXM).
+           operations over the type's peak rate (H100 SXM; for B3 the
+           2.25 integer instructions a term of ``chip_smoke.py``'s bound
+           at 128 a clock per SM), and for a round none.
 
 Each kernel is first held to its plain version (B4 within 1e-5 (|g| |x|),
-B6 bf16 within 2^-8 max|v| + 2^-8 |ref|); a miss raises.
+B6 bf16 within 2^-8 max|v| + 2^-8 |ref|, the B3 products equal to the
+limb route ``matmul_gf_dot`` to the bit); a miss raises.  A round has no
+plain yardstick here: ``chip_smoke.py`` holds its result to the CPU route.
 """
 
 from __future__ import annotations
@@ -37,9 +46,13 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12        # H100 SXM FP32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+GF_INSTR_PER_TERM = 1 + 5 / 4  # one IMAD.WIDE a GF(p) term, a 5-instruction fold per four
+INT_ISSUE_PER_S = 132 * 128 * 1.98e9   # integer issue: 132 SMs x 128 a clock x 1.98 GHz
 
 
 def event_ms(torch, fn, calls: int, runs: int) -> float:
@@ -131,6 +144,66 @@ def flash_row(torch, fa) -> dict:
             "library_times": times(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))}
 
 
+P = (1 << 31) - 1
+
+
+def gf_rows(torch, gf, co, lg) -> list[dict]:
+    """B3 through ``gf.matmul_gf`` / ``gf.bmm_gf`` at every product of the
+    exact rounds, and one round of each degree."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    residues = lambda *shape: torch.randint(0, P, shape, generator=gen, device="cuda",
+                                            dtype=torch.int32)
+    nr, rows, cols = 150, 60, 3000
+    x_tilde = residues(nr, rows, cols)
+    # (what, a, b): the deg-2 gradient's a is the transposed view the round
+    # passes; the others are contiguous, as the round lays them out
+    products = [
+        ("encode (150, 120) @ (120, 75 000)", residues(150, 120), residues(120, 75_000)),
+        ("deg-1 worker shards (3750, 3000) @ (3000, 8)", residues(3750, cols), residues(cols, 8)),
+        ("deg-1 decode (120, 120) @ (120, 200)", residues(120, 120), residues(120, 200)),
+        ("deg-2 residual (9000, 3000) @ (3000, 1)", x_tilde.reshape(nr * rows, cols),
+         residues(cols, 1)),
+        ("deg-2 gradient x~^T (150, 3000, 60) @ (150, 60, 1)", x_tilde.transpose(1, 2),
+         residues(nr, rows, 1)),
+        ("deg-2 decode (50, 99) @ (99, 3000)", residues(50, 99), residues(99, cols)),
+    ]
+    out = []
+    for what, a, b in products:
+        fn = (lambda a=a, b=b: gf.matmul_gf(a, b)) if a.dim() == 2 else \
+             (lambda a=a, b=b: gf.bmm_gf(a, b))
+        if not torch.equal(fn(), gf.matmul_gf_dot(a.contiguous(), b.contiguous())):
+            raise AssertionError(f"B3 {what} differs from the limb route")
+        batch = a.shape[0] if a.dim() == 3 else 1
+        m, c, n = a.shape[-2], a.shape[-1], b.shape[-1]
+        moved = 4 * batch * (m * c + c * n + m * n)
+        terms = batch * m * c * n
+        out.append({"name": "B3 " + what, "shape": [batch, m, c, n],
+                    "bound_ms": max(moved / HBM_BYTES_PER_S,
+                                    terms * GF_INSTR_PER_TERM / INT_ISSUE_PER_S) * 1e3,
+                    "kernel": times(torch, fn)})
+    del x_tilde, products
+    rng = np.random.default_rng(16)
+    on = torch.ones(nr, dtype=torch.bool, device="cuda")
+    on[::7] = False                                    # 128 of 150 on time
+    spec1 = lg.CodeSpec(15, 10, 120, 1)                # EC2 scenario 1, K* = 120
+    x1 = rng.integers(0, P, size=(spec1.k, 25, cols), dtype=np.int32)
+    w1 = torch.as_tensor(rng.integers(0, P, size=(cols, 8), dtype=np.int32), device="cuda")
+    coded1 = co.encode_dataset_modp(spec1, x1, device="cuda")
+    spec2 = lg.CodeSpec(15, 10, 50, 2)                 # Fig. 3 scenario 3, K* = 99
+    x2 = rng.integers(0, P, size=(spec2.k, rows, cols), dtype=np.int32)
+    y2 = rng.integers(0, P, size=(spec2.k, rows), dtype=np.int32)
+    w2 = torch.as_tensor(rng.integers(0, P, size=(cols,), dtype=np.int32), device="cuda")
+    coded2 = co.encode_dataset_modp(spec2, x2, y2, device="cuda")
+    for what, fn in (("exact deg-1 round (coded_matmul_exact)",
+                      lambda: co.coded_matmul_exact(coded1, w1, on)),
+                     ("exact deg-2 round (coded_linear_gradient_modp)",
+                      lambda: co.coded_linear_gradient_modp(coded2, w2, on))):
+        if not bool(fn()[1]):
+            raise AssertionError(f"{what}: 128 on-time chunks reported not ok")
+        out.append({"name": what, "bound_ms": None, "kernel": times(torch, fn)})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True, help="a checkout's src directory")
@@ -143,12 +216,15 @@ def main() -> int:
         print("kernel_ab: no CUDA device is available", file=sys.stderr)
         return 1
     import repro_torch
+    from repro_torch.core import coded_ops as co
+    from repro_torch.core import lagrange as lg
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gf
     from repro_torch.kernels import lagrange_encode as le
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    rows = [encode_row(torch, le), flash_row(torch, fa)]
+    rows = [encode_row(torch, le), flash_row(torch, fa), *gf_rows(torch, gf, co, lg)]
     print(json.dumps({"label": args.label, "package": repro_torch.__file__,
                       "gpu": smi.stdout.strip().splitlines()[0], "torch": torch.__version__,
                       "rows": rows}), flush=True)
