@@ -105,14 +105,13 @@ def coded_gradient_cuda(x_tilde: torch.Tensor, y_tilde: torch.Tensor,
     out = torch.empty((nr, c, p), dtype=torch.float32, device=w.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(w.device):
-        scratch = None
-        if residual_path(r_rows, p) == "global":
-            scratch = torch.empty((nr, r_rows, p), dtype=torch.float32, device=w.device)
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = _library().coded_gradient(
-            x_tilde.data_ptr(), y_tilde.data_ptr(), w.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), nr, r_rows, c, p, stream)
+    scratch = None
+    if residual_path(r_rows, p) == "global":
+        scratch = torch.empty((nr, r_rows, p), dtype=torch.float32, device=w.device)
+    stream = torch.cuda.current_stream(w.device).cuda_stream
+    err = _library().coded_gradient(
+        x_tilde.data_ptr(), y_tilde.data_ptr(), w.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), nr, r_rows, c, p, stream)
     if err != 0:
         raise RuntimeError(f"coded_gradient kernel launch failed: cudaError {err}")
     _LAUNCHES["coded_gradient_cuda"] += 1

@@ -40,7 +40,7 @@ import torch
 
 from repro_torch.kernels.dispatch import PLAIN, route
 
-from .kernel import bmm_gf_cuda, matmul_gf_cuda, reads_as_it_lies
+from .kernel import bmm_gf_cuda, kernel_layout, matmul_gf_cuda
 from .ref import (FIELD_P, _norm, lagrange_basis_gf_ref, matmul_gf_ref,
                   to_gf)
 
@@ -125,13 +125,14 @@ def _count_pass(kind: str, elements: int) -> None:
 
 def _card_operand(x) -> torch.Tensor:
     """An operand for the kernel: an int32 tensor as it lies (the kernel
-    reduces it as it loads), a view it cannot read coalesced as a contiguous
-    copy, any other integer dtype through :func:`to_gf`."""
+    reduces it as it loads) or, where it cannot read it coalesced, a
+    contiguous copy (:func:`kernel_layout`); any other integer dtype
+    through :func:`to_gf`."""
     if isinstance(x, torch.Tensor) and x.dtype == torch.int32:
-        if reads_as_it_lies(x) or x.dim() < 2:
-            return x
-        _count_pass("contiguous", x.numel())
-        return x.contiguous()
+        laid = kernel_layout(x) if x.dim() >= 2 else x
+        if laid is not x:
+            _count_pass("contiguous", x.numel())
+        return laid
     x = to_gf(x)
     _count_pass("to_gf", x.numel())
     return x
