@@ -10,9 +10,12 @@ Phases, one line each (any failure raises and exits non-zero):
      CUDA versions, and the nvcc builds of every ``csrc/*.cu``, one nvcc
      process per source, all started together;
   2. each kernel entry point against its plain PyTorch version on the card,
-     at the main path's shapes and at n = 15, 64, 100 (max |diff| <= 1e-5),
-     with its time, the plain version's time and the card's bound for the
-     same work.  Every time here and in phases 6 and 9 is taken twice, the
+     bit for bit: the per-row entry on the sweep engine's layout (probabilities
+     (2, 256, 20 000, 15), thresholds (1, 256, 1, 15) read as they lie; also
+     (2, 256, 2 000, 64)) and on (rows, n) thresholds, the static entry with a tuple, at
+     n = 15, 64 and 100, with its time, the plain version's time and the
+     card's bound for the same work (distinct threshold rows counted once).
+     Every time here and in phases 6 and 9 is taken twice, the
      same way for kernel, plain version and library call (``time_ms``): a
      single call between CUDA events (``ms``; on an idle card this counts
      the call's host work before its launch too) and 10 back-to-back calls
@@ -40,10 +43,12 @@ Phases, one line each (any failure raises and exits non-zero):
      streaming route at k = 8 and 5, the scalar stream at ragged columns,
      the tiled route at k = 64; each line names its route) and the fused
      coded gradient (within the float32 reduction-order bound
-     |diff| <= 1e-5 * (|A| |B|) elementwise; each line names where the
-     residual lives, shared memory or, past what a block may have, global),
-     each timed beside its plain version, its bound and its library call or
-     composition of calls;
+     |diff| <= 1e-5 * (|A| |B|) elementwise, and the same bits on two calls;
+     (150, 60, 3000, 1), (7, 13, 301, 3), (2, 4096, 8, 4) and
+     (2, 65 536, 8, 1) on the rows route, each line with its row plan, then
+     the chunk route with its residual in shared memory and in global
+     memory), each timed beside its plain version, its bound and its library
+     call or composition of calls;
   7. the coded path: the exact degree-1 round at the paper's EC2 scenario 1
      for every feasible LEA round of a 2 000-round rollout (the first 8
      rounds equal to the CPU plain route, one round equal to the numpy
@@ -217,80 +222,95 @@ def timing_entry(**times: Timing | None) -> dict[str, float | None]:
     return entry
 
 
-def bound_ms(probs: torch.Tensor, w: torch.Tensor, per_row: bool) -> tuple[float, str]:
+def bound_ms(probs: torch.Tensor, w: torch.Tensor) -> tuple[float, str]:
     """Least time on the card: bytes moved once vs the DP's flops on this data.
 
-    Per row the DP does n(n+1)/2 fused multiply-adds, n multiplies and n
-    subtractions, plus one add per tail term of each feasible prefix (the
-    counts max(w, 0)..i+1 this run's thresholds need).
+    Bytes: probs read and out written once, and each distinct threshold row
+    (the elements of ``w`` as the caller holds it, before any broadcast) read
+    once.  Per row the DP does n(n+1)/2 fused multiply-adds, n multiplies and
+    n subtractions, plus one add per tail term of each feasible prefix (the
+    counts max(w, 0)..i+1 this run's thresholds need; a threshold row shared
+    by many rows counts once for each).
     """
-    rows, n = probs.shape
-    w_bytes = rows * n * 4 if per_row else n * 4
-    moved = rows * n * 4 + w_bytes + rows * n * 4
+    n = probs.shape[-1]
+    rows = probs.numel() // n
+    w_rows = max(w.numel() // n, 1)
+    moved = 2 * probs.numel() * 4 + w.numel() * 4
     i = torch.arange(n, device=w.device)
     lo = torch.clamp(w.to(torch.int64), min=0)
     adds = torch.where(w <= i + 1, i + 2 - lo, 0)
-    tail_adds = int(adds.sum()) * (1 if per_row else rows)
+    tail_adds = int(adds.sum()) * (rows // w_rows)
     flops = rows * (n * (n + 1) + 2 * n) + tail_adds
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_inputs(rows: int, n: int, gen: torch.Generator):
-    probs = torch.rand((rows, n), generator=gen, device="cuda")
+def kernel_inputs(lead: tuple[int, ...], n: int, w_lead: tuple[int, ...],
+                  gen: torch.Generator):
+    """Probabilities (*lead, n), sorted descending, and int32 thresholds
+    (*w_lead, n) to broadcast against them."""
+    probs = torch.rand(lead + (n,), generator=gen, device="cuda")
     probs = torch.sort(probs, dim=-1, descending=True).values.contiguous()
     # thresholds <= 0, feasible, infeasible (> i~) and the n + 1 padding value
-    w = torch.randint(-2, n + 2, (rows, n), generator=gen, device="cuda",
+    w = torch.randint(-2, n + 2, w_lead + (n,), generator=gen, device="cuda",
                       dtype=torch.int32)
-    w[:, -1] = n + 1
+    w[..., -1] = n + 1
     return probs, w
 
 
 def check_kernels(kernel_mod, ref) -> dict:
-    """Phase 2: every entry point against the plain version, timed."""
+    """Phase 2: every entry point against the plain version, bit for bit, timed."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    main_rows = 2 * 256 * 20_000          # (lea, oracle) x 256 rows x M rounds
+    engine = (2, 256, 20_000)                 # (lea, oracle) x 256 rows x M rounds
+    main_rows = 2 * 256 * 20_000
+    # (entry point, layout, probs' leading shape, n, main shape); "engine" is
+    # the sweep's thresholds (1, 256, 1, n) read as they lie, "per-row" a
+    # (rows, n) tensor of thresholds, "static" a tuple
     cases = [
-        ("success_tails_cuda_w", main_rows, 15, True),
-        ("success_tails_cuda", 2 * 20_000, 15, True),   # compare: (lea, oracle) x M
-        ("success_tails_cuda_w", 1_000_000, 15, False),
-        ("success_tails_cuda", 1_000_000, 15, False),
-        ("success_tails_cuda_w", 1_000_000, 64, False),
-        ("success_tails_cuda", 1_000_000, 64, False),
-        ("success_tails_cuda_w", 100_000, 100, False),
-        ("success_tails_cuda", 100_000, 100, False),
+        ("success_tails_cuda_w", "engine", engine, 15, True),
+        ("success_tails_cuda", "static", (2 * 20_000,), 15, True),   # compare: (lea, oracle) x M
+        ("success_tails_cuda_w", "per-row", (main_rows,), 15, False),
+        ("success_tails_cuda_w", "engine", (2, 256, 2_000), 64, False),
+        ("success_tails_cuda_w", "per-row", (1_000_000,), 15, False),
+        ("success_tails_cuda", "static", (1_000_000,), 15, False),
+        ("success_tails_cuda_w", "per-row", (1_000_000,), 64, False),
+        ("success_tails_cuda", "static", (1_000_000,), 64, False),
+        ("success_tails_cuda_w", "per-row", (100_000,), 100, False),
+        ("success_tails_cuda", "static", (100_000,), 100, False),
     ]
     record = {}
-    for name, rows, n, main_shape in cases:
-        probs, w = kernel_inputs(rows, n, gen)
+    for name, layout, lead, n, main_shape in cases:
+        w_lead = (1, lead[1], 1) if layout == "engine" else lead if layout == "per-row" else ()
+        probs, w = kernel_inputs(lead, n, w_lead, gen)
         if name == "success_tails_cuda_w":
             run = lambda: kernel_mod.success_tails_cuda_w(probs, w)
-            w_ref, per_row = w, True
         else:
-            w_static = tuple(int(v) for v in w[0].tolist())
+            w_static = tuple(int(v) for v in w.tolist())
             run = lambda: kernel_mod.success_tails_cuda(probs, w_static)
-            w_ref, per_row = w[0].contiguous(), False
         out = run()
         torch.cuda.synchronize()
-        want = ref(probs, w_ref)
+        want = ref(probs, w)
         torch.cuda.synchronize()
         if out.shape != want.shape or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"{name} n={n}: bad output {tuple(out.shape)}")
         err = float((out - want).abs().max())
-        if err > TOLERANCE:
-            raise AssertionError(f"{name} rows={rows} n={n}: max|diff| {err} > {TOLERANCE}")
+        if not torch.equal(out, want):
+            raise AssertionError(f"{name} {layout} {lead} n={n}: not bit-equal to the plain "
+                                 f"version, max|diff| {err}")
         ms = time_ms(run)
-        plain_ms = time_ms(lambda: ref(probs, w_ref), warm=1, runs=3)
-        b_ms, b_by = bound_ms(probs, w_ref, per_row)
-        log("kernel", name=name, rows=rows, n=n, main_shape=main_shape,
-            max_abs_err=err, bound_by=b_by, **timing_fields(b_ms, ms=ms, plain_ms=plain_ms))
+        plain_ms = time_ms(lambda: ref(probs, w), warm=1, runs=3)
+        b_ms, b_by = bound_ms(probs, w)
+        log("kernel", name=name, thresholds=layout, probs=lead + (n,), w=tuple(w.shape),
+            rows=probs.numel() // n, n=n, main_shape=main_shape, max_abs_err=err,
+            bit_equal=True, bound_by=b_by, **timing_fields(b_ms, ms=ms, plain_ms=plain_ms))
         entry = record.setdefault(name, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if main_shape:
             entry.update(timing_entry(ms=ms, plain_ms=plain_ms), bound_ms=b_ms,
-                         bound_by=b_by, shape=[rows, n])
+                         bound_by=b_by, kernel_route=layout,
+                         shape=[list(probs.shape), list(w.shape)])
         del probs, w, out, want
         torch.cuda.empty_cache()
     return record
@@ -432,10 +452,13 @@ def check_coding_kernels() -> dict:
              shape=[nr, k, cols])
         del g, x, got, want, bound, diff
 
-    # B5: (nr, R, C, P); (2, 4096, 8, 4) keeps a 64 KB residual in shared
-    # memory opted in past 48 KB, (2, 65 536, 8, 1) a 256 KB one in global
+    # B5: (nr, R, C, P), each on the route its shape takes (gradient_route):
+    # the paper's shape and the three others on the rows route, then the
+    # chunk route with its residual in shared memory opted in past 48 KB and,
+    # past what a block may have, in global memory
     for (nr, r_rows, c, p), main in (((150, 60, 3000, 1), True), ((7, 13, 301, 3), False),
-                                     ((2, 4096, 8, 4), False), ((2, 65_536, 8, 1), False)):
+                                     ((2, 4096, 8, 4), False), ((2, 65_536, 8, 1), False),
+                                     ((1, 200, 4, 70), False), ((1, 6000, 4, 16), False)):
         x = torch.randn((nr, r_rows, c), generator=gen, device="cuda")
         y = torch.randn((nr, r_rows, p), generator=gen, device="cuda")
         w = torch.randn((c, p), generator=gen, device="cuda")
@@ -444,6 +467,7 @@ def check_coding_kernels() -> dict:
         w_b = w.expand(nr, c, p)
         two_bmm = lambda: torch.bmm(x.transpose(1, 2), torch.bmm(x, w_b) - y)
         got, want = run(), plain()
+        again = run()
         ax = x.abs()
         bound = FP32_REL * torch.bmm(ax.transpose(1, 2), torch.bmm(ax, w_b.abs()) + y.abs())
         diff = (got - want).abs()
@@ -451,21 +475,29 @@ def check_coding_kernels() -> dict:
         err = float(diff.max())
         if not bool(torch.isfinite(got).all()) or bool((diff > bound).any()):
             raise AssertionError(f"coded_gradient_cuda {(nr, r_rows, c, p)}: max|diff| {err}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"coded_gradient_cuda {(nr, r_rows, c, p)}: two calls differ")
         ms = time_ms(run)
         plain_ms = time_ms(plain, warm=1, runs=3)
         composition_ms = time_ms(two_bmm)
         b_ms, b_by = _bound(4 * (nr * r_rows * c + nr * r_rows * p + c * p + nr * c * p),
                             4 * nr * r_rows * c * p, FP32_FLOP_PER_S)
-        log("kernel", name="coded_gradient_cuda", shape=(nr, r_rows, c, p),
-            residual=cg.residual_path(r_rows, p), max_abs_err=err, bound_by=b_by,
+        route = cg.gradient_route(r_rows, c, p)
+        if route == "rows":
+            plan = cg.row_plan(nr, r_rows, c, p, cg.kernel.row_vec(c, p, True))
+            where = {"plan": json.dumps(plan._asdict())}
+        else:
+            where = {"residual": cg.residual_path(r_rows, p)}
+        log("kernel", name="coded_gradient_cuda", shape=(nr, r_rows, c, p), route=route,
+            **where, max_abs_err=err, same_bits_twice=True, bound_by=b_by,
             **timing_fields(b_ms, ms=ms, plain_ms=plain_ms, composition_ms=composition_ms))
         keep("coded_gradient_cuda", err, main,
              **timing_entry(ms=ms, plain_ms=plain_ms, library_ms=None,
                             composition_ms=composition_ms),
-             bound_ms=b_ms, bound_by=b_by,
+             bound_ms=b_ms, bound_by=b_by, kernel_route=route,
              composition="two torch.bmm calls (x w - y, then x^T resid), TF32 off",
              shape=[nr, r_rows, c, p])
-        del x, y, w, got, want, bound, diff, ax
+        del x, y, w, got, again, want, bound, diff, ax
     torch.cuda.empty_cache()
     return record
 

@@ -4,10 +4,17 @@
 source (``kernels/csrc/coded_gradient.cu``) states the design and bound.
 It keeps the JAX wrapper's footprint check (:func:`check_footprint`), so the
 same inputs raise ``ValueError`` in both packages, and that is the only
-refusal: a chunk's (R, P) residual stays in the block's shared memory up to
-:func:`shared_residual_limit` floats (what the device lets a block opt in
-to, read at run time; 58 112 on the H100), and a larger one goes to a
-global scratch of nr * R * P floats that the wrapper allocates.
+refusal.  Two routes, picked from the shape alone (:func:`gradient_route`):
+
+  * ``rows`` for P <= 8 and C * next_pow2(P) <= 4096: blocks stream rows of
+    x through a ring in shared memory and use each once for both products;
+    a chunk's rows are split over a cluster of 1-8 blocks (:func:`row_plan`)
+    whose partials are added in a fixed order;
+  * ``chunk`` otherwise: one block a chunk, its (R, P) residual in shared
+    memory up to :func:`shared_residual_limit` floats (what the device lets
+    a block opt in to, read at run time; 58 112 on the H100), and past that
+    in a global scratch of nr * R * P floats that the wrapper allocates
+    (:func:`residual_path`).
 
 Inputs are float32, contiguous, on one CUDA device.  The wrapper checks
 that, allocates its output with ``torch.empty``, launches on the current
@@ -18,6 +25,8 @@ count.  It never falls back to the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -27,6 +36,63 @@ from repro_torch.kernels import build
 VMEM_BUDGET_BYTES = 12 * 1024 * 1024
 
 _LAUNCHES = {"coded_gradient_cuda": 0}
+
+ROW_THREADS = 256          # a block of the rows route
+ROW_REG_FLOATS = 16        # a thread's x floats a row times P's tile (registers)
+MAX_CLUSTER = 8            # the portable thread block cluster size
+TARGET_BLOCKS = 4 * 132    # four blocks per SM of the H100
+
+
+def p_tile(p: int) -> int:
+    """The rows route's register tile over P: the next power of two <= 8."""
+    return 1 if p <= 1 else 2 if p <= 2 else 4 if p <= 4 else 8
+
+
+def gradient_route(r_rows: int, c: int, p: int) -> str:
+    """The kernel that takes chunks of shape (R, C) with P targets:
+    ``"rows"`` where a thread's share of a row and of w fits its registers
+    (P <= 8 and C * next_pow2(P) <= 4096), else ``"chunk"``."""
+    del r_rows    # any R streams through the ring
+    if p <= 8 and c * p_tile(p) <= ROW_THREADS * ROW_REG_FLOATS:
+        return "rows"
+    return "chunk"
+
+
+def row_vec(c: int, p: int, aligned: bool) -> int:
+    """Floats a copy of the rows route: 4 (16 bytes) where rows are whole
+    16-byte vectors on a 16-byte boundary and a 4-float piece fits the
+    register budget beside P's tile, else 1."""
+    return 4 if c % 4 == 0 and aligned and 4 * p_tile(p) <= ROW_REG_FLOATS else 1
+
+
+class RowPlan(NamedTuple):
+    vec: int              # floats a copy: 4 (16 bytes) or 1
+    tc: int               # threads a row (a power of two)
+    k: int                # pieces of vec columns a thread owns
+    tr: int               # rows a block takes a step
+    cluster: int          # blocks a chunk
+    rows_per_block: int
+
+
+@functools.lru_cache(maxsize=256)
+def row_plan(nr: int, r_rows: int, c: int, p: int, vec: int) -> RowPlan:
+    """The rows route's launch: the fewest threads a row that keep a
+    thread's pieces within its registers, then the most blocks a chunk
+    (a power of two <= 8) that bring nr * cluster up to four blocks per SM
+    while each block keeps a step of rows."""
+    kmax = ROW_REG_FLOATS // (vec * p_tile(p))
+    cv = -(-c // vec)
+    tc = 1
+    while -(-cv // tc) > kmax:
+        tc *= 2
+    k = max(1, -(-cv // tc))
+    tr = ROW_THREADS // tc
+    steps = -(-r_rows // tr)
+    want = -(-TARGET_BLOCKS // max(nr, 1))
+    cluster = 1
+    while cluster < MAX_CLUSTER and cluster < want and 2 * cluster <= steps:
+        cluster *= 2
+    return RowPlan(vec, tc, k, tr, cluster, max(1, -(-steps // cluster)) * tr)
 
 
 def launch_counts() -> dict[str, int]:
@@ -63,6 +129,11 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p,
         ]
         lib.coded_gradient.restype = ctypes.c_int
+        lib.coded_gradient_rows.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            *[ctypes.c_int] * 9, ctypes.c_void_p,
+        ]
+        lib.coded_gradient_rows.restype = ctypes.c_int
         lib.coded_gradient_shared_limit.argtypes = []
         lib.coded_gradient_shared_limit.restype = ctypes.c_longlong
         _LIB = lib
@@ -77,7 +148,7 @@ def shared_residual_limit() -> int:
 
 
 def residual_path(r_rows: int, p: int) -> str:
-    """``"shared"`` or ``"global"``: where the kernel keeps an (R, P)
+    """``"shared"`` or ``"global"``: where the chunk route keeps an (R, P)
     residual on the current CUDA device."""
     return "shared" if r_rows * p <= shared_residual_limit() else "global"
 
@@ -105,19 +176,26 @@ def coded_gradient_cuda(x_tilde: torch.Tensor, y_tilde: torch.Tensor,
     out = torch.empty((nr, c, p), dtype=torch.float32, device=w.device)
     if out.numel() == 0:
         return out
-    scratch = None
-    if residual_path(r_rows, p) == "global":
-        scratch = torch.empty((nr, r_rows, p), dtype=torch.float32, device=w.device)
-    stream = torch.cuda.current_stream(w.device).cuda_stream
-    err = _library().coded_gradient(
-        x_tilde.data_ptr(), y_tilde.data_ptr(), w.data_ptr(), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), nr, r_rows, c, p, stream)
+    stream = torch._C._cuda_getCurrentRawStream(w.device.index)   # the current stream
+    if gradient_route(r_rows, c, p) == "rows":
+        plan = row_plan(nr, r_rows, c, p, row_vec(c, p, x_tilde.data_ptr() % 16 == 0))
+        err = _library().coded_gradient_rows(
+            x_tilde.data_ptr(), y_tilde.data_ptr(), w.data_ptr(), out.data_ptr(),
+            nr, r_rows, c, p, plan.vec, plan.tc, plan.k, plan.cluster,
+            plan.rows_per_block, stream)
+    else:
+        scratch = None
+        if residual_path(r_rows, p) == "global":
+            scratch = torch.empty((nr, r_rows, p), dtype=torch.float32, device=w.device)
+        err = _library().coded_gradient(
+            x_tilde.data_ptr(), y_tilde.data_ptr(), w.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), nr, r_rows, c, p, stream)
     if err != 0:
         raise RuntimeError(f"coded_gradient kernel launch failed: cudaError {err}")
     _LAUNCHES["coded_gradient_cuda"] += 1
     return out
 
 
-__all__ = ["VMEM_BUDGET_BYTES", "check_footprint", "coded_gradient_cuda",
-           "launch_counts", "reset_launch_counts", "residual_path",
-           "shared_residual_limit"]
+__all__ = ["VMEM_BUDGET_BYTES", "RowPlan", "check_footprint", "coded_gradient_cuda",
+           "gradient_route", "launch_counts", "reset_launch_counts", "residual_path",
+           "row_plan", "row_vec", "shared_residual_limit"]

@@ -1,4 +1,5 @@
-from .kernel import launch_counts, reset_launch_counts  # noqa: F401
+from .kernel import (launch_counts, reset_launch_counts,  # noqa: F401
+                     threshold_geometry)
 from .ops import (  # noqa: F401
     success_tails,
     success_tails_cuda,

@@ -8,10 +8,10 @@ picks the kernel's entry point, as in the JAX package:
   * a tuple, list or numpy array — static thresholds shared by every row
     (:func:`success_tails_cuda`);
   * a tensor broadcastable to ``probs`` — per-row thresholds
-    (:func:`success_tails_cuda_w`).
+    (:func:`success_tails_cuda_w`), passed as they lie: a broadcast axis
+    keeps stride 0 and nothing of ``probs``' size is written for them.
 
-Any leading batch shape is accepted; rows are flattened to (B, n) for the
-kernel and reshaped back.
+Any leading batch shape is accepted.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ from .ref import success_tails_ref
 
 def success_tails(probs: torch.Tensor, w) -> torch.Tensor:
     """(..., n) descending-sorted probabilities -> (..., n) prefix tails."""
-    n = probs.shape[-1]
     per_row = isinstance(w, torch.Tensor)
     if not per_row:
         w = tuple(int(v) for v in np.asarray(w).reshape(-1))
@@ -35,13 +34,10 @@ def success_tails(probs: torch.Tensor, w) -> torch.Tensor:
         if per_row:
             return success_tails_ref(probs, w)
         return success_tails_ref(probs, torch.tensor(w, dtype=torch.int32))
-    flat = probs.to(torch.float32).reshape(-1, n).contiguous()
+    probs32 = probs.to(torch.float32).contiguous()
     if per_row:
-        w_flat = torch.broadcast_to(w.to(torch.int32), probs.shape)
-        out = success_tails_cuda_w(flat, w_flat.reshape(-1, n).contiguous())
-    else:
-        out = success_tails_cuda(flat, w)
-    return out.reshape(probs.shape)
+        return success_tails_cuda_w(probs32, w.to(torch.int32))
+    return success_tails_cuda(probs32, w)
 
 
 __all__ = ["success_tails", "success_tails_cuda", "success_tails_cuda_w",

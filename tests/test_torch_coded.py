@@ -75,9 +75,10 @@ def test_encode_plain_matches_pallas_interpret(nr, k, cols):
 
 
 # (2, 4096, 8, 4): a 64 KB residual a chunk, past the 48 KB a block takes
-# without opting in, which the JAX wrapper accepts
+# without opting in, which the JAX wrapper accepts; (3, 37, 130, 2): the rows
+# route splits each chunk's 37 rows 32 + 5 over a cluster of two blocks
 @pytest.mark.parametrize("nr,r_rows,c,p", [(4, 6, 9, 1), (3, 5, 7, 2), (5, 12, 130, 1),
-                                           (2, 4096, 8, 4)])
+                                           (2, 4096, 8, 4), (3, 37, 130, 2)])
 def test_coded_gradient_plain_matches_pallas_interpret(nr, r_rows, c, p):
     rng = np.random.default_rng(nr * c)
     x = rng.normal(size=(nr, r_rows, c)).astype(np.float32)
@@ -97,6 +98,64 @@ def test_coded_gradient_plain_matches_pallas_interpret(nr, r_rows, c, p):
             jnp.asarray(x), jnp.asarray(y[..., 0]), jnp.asarray(w[:, 0]), interpret=True))
         assert got_v.shape == want_v.shape == (nr, c)
         assert (np.abs(got_v.numpy() - want_v) <= bound[..., 0]).all()
+
+
+# (R, C, P) -> route: the four shapes chip_smoke.py times, and both sides of
+# the switch-over at each P tile (C * next_pow2(P) <= 4096 and P <= 8)
+@pytest.mark.parametrize("r_rows,c,p,want", [
+    (60, 3000, 1, "rows"), (13, 301, 3, "rows"), (4096, 8, 4, "rows"), (65_536, 8, 1, "rows"),
+    (16, 4096, 1, "rows"), (16, 4097, 1, "chunk"), (16, 2048, 2, "rows"), (16, 2049, 2, "chunk"),
+    (16, 1024, 3, "rows"), (16, 1025, 4, "chunk"), (16, 512, 8, "rows"), (16, 513, 5, "chunk"),
+    (200, 4, 8, "rows"), (200, 4, 9, "chunk"), (200, 4, 70, "chunk"), (0, 8, 1, "rows")])
+def test_gradient_route_follows_the_shape_alone(r_rows, c, p, want):
+    assert coded_gradient.gradient_route(r_rows, c, p) == want
+
+
+def _rows_route(x, y, w, plan):
+    """The rows route's partition in numpy float32: block q of a chunk's
+    cluster takes rows [q rows_per_block, (q + 1) rows_per_block), sums
+    x_r^T (x_r w - y_r) over them, and the cluster adds the blocks'
+    partials in rank order."""
+    nr, r_rows, c = x.shape
+    out = np.zeros((nr, c, w.shape[1]), np.float32)
+    for v in range(nr):
+        for q in range(plan.cluster):
+            lo = min(r_rows, q * plan.rows_per_block)
+            hi = min(r_rows, lo + plan.rows_per_block)
+            part = np.zeros_like(out[v])
+            for r in range(lo, hi):
+                resid = x[v, r] @ w - y[v, r]
+                part += np.outer(x[v, r], resid)
+            out[v] += part
+    return out
+
+
+@pytest.mark.parametrize("nr,r_rows,c,p,vec", [(150, 60, 3000, 1, 4), (7, 13, 301, 3, 1),
+                                               (2, 4096, 8, 4, 4), (2, 65_536, 8, 1, 4),
+                                               (3, 37, 130, 2, 1), (4, 1, 33, 2, 1),
+                                               (2, 16, 4096, 1, 4), (2, 16, 4096, 1, 1),
+                                               (1, 10, 512, 8, 4), (3, 0, 8, 1, 4)])
+def test_row_plan_covers_every_row_and_column_once(nr, r_rows, c, p, vec):
+    vec = coded_gradient.kernel.row_vec(c, p, aligned=vec == 4)
+    plan = coded_gradient.row_plan(nr, r_rows, c, p, vec)
+    pt = coded_gradient.kernel.p_tile(p)
+    assert plan.tc & (plan.tc - 1) == 0 and 1 <= plan.tc <= 256 and plan.tr * plan.tc == 256
+    assert plan.k * plan.vec * pt <= 16 and 1 <= plan.cluster <= 8
+    assert plan.rows_per_block % plan.tr == 0 and plan.rows_per_block * plan.cluster >= r_rows
+    cols = sorted((tc + plan.tc * k) * vec + e for tc in range(plan.tc) for k in range(plan.k)
+                  for e in range(vec) if (tc + plan.tc * k) * vec + e < c)
+    assert cols == list(range(c))
+    if (nr, r_rows, c, p) == (150, 60, 3000, 1):     # 600 blocks of 15 rows, 1 a step
+        assert plan == (4, 256, 3, 1, 4, 15)
+    if r_rows and nr * c <= 3000:
+        rng = np.random.default_rng(c + p)
+        x = rng.normal(size=(nr, r_rows, c)).astype(np.float32)
+        y = rng.normal(size=(nr, r_rows, p)).astype(np.float32)
+        w = rng.normal(size=(c, p)).astype(np.float32)
+        ax = np.abs(x)
+        bound = 1e-5 * (np.swapaxes(ax, 1, 2) @ (ax @ np.abs(w) + np.abs(y)))
+        want = coded_gradient.coded_gradient_ref(_t(x), _t(y), _t(w)).numpy()
+        assert (np.abs(_rows_route(x, y, w, plan) - want) <= bound).all()
 
 
 def test_coded_gradient_footprint_raises_in_both_packages():

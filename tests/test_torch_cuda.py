@@ -43,8 +43,38 @@ def test_cuda_kernel_matches_plain_version(cuda_device, n):
     torch.cuda.synchronize()
     assert launch_counts()["success_tails_cuda_w"] == before["success_tails_cuda_w"] + 1
     assert launch_counts()["success_tails_cuda"] == before["success_tails_cuda"] + 1
-    torch.testing.assert_close(got_w, success_tails_ref(p, w), rtol=0, atol=1e-5)
-    torch.testing.assert_close(got_s, success_tails_ref(p, w[0]), rtol=0, atol=1e-5)
+    torch.testing.assert_close(got_w, success_tails_ref(p, w), rtol=0, atol=0)
+    torch.testing.assert_close(got_s, success_tails_ref(p, w[0]), rtol=0, atol=0)
+
+
+# the fig3 sweep's layout: probabilities (S, B, m, n), thresholds (1, B, 1, n)
+# read as they lie; 1000 rows a (s, b) and 4 x 3 x 1000 rows in all, not a
+# multiple of a block (128 rows, 64 at n > 32)
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 15, 33, 64, 100])
+@pytest.mark.parametrize("m", [1000, 37])
+def test_tails_kernel_reads_the_engine_layout_bit_equal(cuda_device, n, m):
+    rng = np.random.default_rng(100 * n + m)
+    s, b = 4, 3
+    p = torch.from_numpy(_probs(rng, s * b * m, n).reshape(s, b, m, n)).to(cuda_device)
+    w = torch.from_numpy(rng.integers(-2, n + 2, (1, b, 1, n)).astype(np.int32)).to(cuda_device)
+    before = launch_counts()
+    got = success_tails(p, w)
+    got_s = success_tails(p, tuple(w[0, 0, 0].tolist()))
+    torch.cuda.synchronize()
+    assert launch_counts()["success_tails_cuda_w"] == before["success_tails_cuda_w"] + 1
+    assert launch_counts()["success_tails_cuda"] == before["success_tails_cuda"] + 1
+    want = success_tails_ref(p, torch.broadcast_to(w, p.shape).contiguous())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got_s, success_tails_ref(p, w[0, 0, 0]), rtol=0, atol=0)
+    # a transposed threshold view and probabilities that are not 16-byte aligned
+    wt = torch.from_numpy(rng.integers(-2, n + 2, (n, b)).astype(np.int32)).to(cuda_device).T
+    flat = torch.empty(p.numel() + 1, device=cuda_device)
+    flat[1:] = p.reshape(-1)
+    p_off = flat[1:].view(p.shape)
+    torch.testing.assert_close(success_tails(p_off, wt[:, None]),
+                               success_tails_ref(p, wt[:, None].contiguous()),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -175,15 +205,21 @@ def test_encode_kernel_within_fp32_bound(cuda_device, nr, k, cols):
     assert bool(((got - le.encode_matrix_ref(g, x)).abs() <= bound).all())
 
 
+# path: the route, and for the chunk route where its residual lives
 @pytest.mark.cuda
 @pytest.mark.parametrize("nr,r_rows,c,p,path", [
-    (150, 60, 3000, 1, "shared"), (7, 13, 301, 3, "shared"), (4, 1, 33, 2, "shared"),
-    (2, 4096, 8, 4, "shared"),        # a 64 KB residual: shared memory opted in
-    (2, 65_536, 8, 1, "global"),      # 256 KB: past what a block may have, through L2
-    (1, 200, 4, 70, "shared")])
+    (150, 60, 3000, 1, "rows"), (7, 13, 301, 3, "rows"), (4, 1, 33, 2, "rows"),
+    (2, 4096, 8, 4, "rows"), (2, 65_536, 8, 1, "rows"),
+    (3, 37, 130, 2, "rows"),          # R split 32 + 5 over a cluster of 2
+    (2, 16, 4096, 1, "rows"),         # the widest C the rows route takes at P = 1
+    (3, 0, 8, 1, "rows"),             # no rows: zeros
+    (2, 16, 4100, 1, "chunk/shared"),
+    (1, 200, 4, 70, "chunk/shared"),  # 56 KB: shared memory opted in
+    (1, 6000, 4, 16, "chunk/global")])  # 375 KB: past what a block may have, through L2
 def test_coded_gradient_kernel_within_fp32_bound(cuda_device, nr, r_rows, c, p, path):
     from repro_torch.kernels import coded_gradient as cg
-    assert cg.residual_path(r_rows, p) == path
+    route = cg.gradient_route(r_rows, c, p)
+    assert (route if route == "rows" else f"chunk/{cg.residual_path(r_rows, p)}") == path
     gen = torch.Generator(device=cuda_device).manual_seed(c)
     x = torch.randn((nr, r_rows, c), generator=gen, device=cuda_device)
     y = torch.randn((nr, r_rows, p), generator=gen, device=cuda_device)
@@ -194,6 +230,13 @@ def test_coded_gradient_kernel_within_fp32_bound(cuda_device, nr, r_rows, c, p, 
     ax = x.abs()
     bound = 1e-5 * (ax.transpose(1, 2) @ (ax @ w.abs() + y.abs()))
     assert bool(((got - cg.coded_gradient_ref(x, y, w)).abs() <= bound).all())
+    assert torch.equal(cg.coded_gradient(x, y, w), got)     # the same bits twice
+    if route == "rows" and c % 4 == 0 and x.numel():
+        # x 4 bytes off a 16-byte boundary: the rows route copies 4 bytes at a time
+        flat = torch.empty(x.numel() + 1, device=cuda_device)
+        flat[1:] = x.reshape(-1)
+        x_off = flat[1:].view(x.shape)
+        assert bool(((cg.coded_gradient(x_off, y, w) - got).abs() <= 2 * bound).all())
     # the one refusal left is the JAX wrapper's working-set check
     with pytest.raises(ValueError, match="VMEM budget"):
         cg.coded_gradient_cuda(torch.zeros((1, 1100, 3000), device=cuda_device),

@@ -21,6 +21,7 @@ from repro.core import lea as jlea
 from repro.kernels.poisson_binomial import (success_tails_pallas,
                                             success_tails_pallas_w)
 from repro.kernels.poisson_binomial import success_tails_ref as jax_ref
+from repro.kernels.poisson_binomial.ops import success_tails as jax_success_tails
 from repro_torch import convert, resolve_device
 from repro_torch.core import lea
 from repro_torch.core.lea import LoadParams
@@ -30,7 +31,9 @@ from repro_torch.kernels.poisson_binomial import (launch_counts,
                                                   success_tails,
                                                   success_tails_cuda,
                                                   success_tails_cuda_w,
-                                                  success_tails_ref)
+                                                  success_tails_ref,
+                                                  threshold_geometry)
+from repro_torch.kernels.poisson_binomial.kernel import MAX_LEAD
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ATOL = 1e-6   # float32 round-off of sums of at most n + 1 pmf terms
@@ -190,6 +193,87 @@ def test_full_width_masked_allocation_equals_static():
     loads_m, istar_m, feas = lea.allocate_masked(p, lea.pool_load(lp, device="cpu"))
     assert torch.equal(loads_s, loads_m) and torch.equal(istar_s, istar_m)
     assert bool(feas.all())
+
+
+# ---------------------------------------------------------------------------
+# thresholds read as they lie: the kernel's view of a broadcast tensor
+# ---------------------------------------------------------------------------
+
+def _view_values(base, offset, geometry, block):
+    """The thresholds the CUDA kernel reads for every row, by its own index
+    arithmetic (pb_tails_regs: a block's distinct rows b // rep loaded once,
+    each at sum ((b // div) % size) * stride), from the 1-D ``base`` the view
+    lies in at ``offset``."""
+    rows, n = geometry.rows, geometry.n
+    b = np.arange(rows, dtype=np.int64)
+    row0 = b // block * block
+    u0 = row0 // geometry.rep
+    last = np.minimum(row0 + block, rows) - 1
+    assert (last // geometry.rep - u0 + 1 <= block).all()   # slots fit the block
+    u = u0 + (b // geometry.rep - u0)                          # the thread's slot
+    off = np.zeros(rows, dtype=np.int64)
+    for div, size, stride in geometry.axes:
+        off += (u * geometry.rep // div) % size * stride
+    idx = offset + off[:, None] + np.arange(n) * geometry.last_stride
+    return base.numpy()[idx]
+
+
+# (probs shape, w shape, w strides or None for contiguous, rep, axes)
+GEOMETRY_CASES = {
+    "engine (1, B, 1, n) over (S, B, m, n)": ((2, 7, 50, 15), (1, 7, 1, 15), None, 50,
+                                              ((50, 7, 15),)),
+    "static tuple": ((40, 15), (15,), None, 40, ()),
+    "static over a batch": ((3, 4, 5, 9), (9,), None, 60, ()),
+    "full per-row thresholds": ((300, 15), (300, 15), None, 1, ((1, 300, 15),)),
+    "leading-axis broadcast": ((3, 300, 15), (300, 15), None, 1, ((1, 300, 15),)),
+    "transposed per-row view": ((6, 4, 9), (6, 4, 9), (9, 54, 1), 1, ((4, 6, 9), (1, 4, 54))),
+    "one threshold a row": ((8, 5, 6), (8, 1, 1), (1, 1, 1), 5, ((5, 8, 1),)),
+}
+
+
+@pytest.mark.parametrize("case", list(GEOMETRY_CASES))
+def test_threshold_geometry_reads_each_layout_as_it_lies(case):
+    probs_shape, w_shape, w_strides, rep, axes = GEOMETRY_CASES[case]
+    rng = np.random.default_rng(len(case))
+    base = torch.from_numpy(rng.integers(-2, 20, 8000).astype(np.int32))
+    if w_strides is None:
+        w = base[3:3 + int(np.prod(w_shape))].view(w_shape)
+    else:
+        w = base.as_strided(w_shape, w_strides, 3)
+    g = threshold_geometry(probs_shape, tuple(w.shape), w.stride())
+    assert (g.rows, g.n, g.rep, g.axes) == (int(np.prod(probs_shape[:-1])),
+                                            probs_shape[-1], rep, axes)
+    want = torch.broadcast_to(w, probs_shape).reshape(-1, probs_shape[-1]).numpy()
+    for block in (128, 64, 7):      # the kernel's blocks, and a ragged one
+        np.testing.assert_array_equal(_view_values(base, 3, g, block), want)
+
+
+@pytest.mark.parametrize("probs_shape,w_shape,w_strides,match", [
+    ((3, 4, 15), (2, 4, 15), (60, 15, 1), "do not broadcast"),
+    ((4, 15), (2, 4, 15), (60, 15, 1), "do not broadcast"),
+    ((4, 15), (4, 14), (14, 1), "do not broadcast"),
+    # five strided leading axes that no two of which merge
+    ((2, 2, 2, 2, 2, 2, 2, 2, 2, 3), (2, 1, 2, 1, 2, 1, 2, 1, 2, 3),
+     (48, 0, 24, 0, 12, 0, 6, 0, 3, 1), f"at most {MAX_LEAD}"),
+])
+def test_threshold_geometry_refuses_what_the_kernel_cannot_take(probs_shape, w_shape,
+                                                                w_strides, match):
+    with pytest.raises(ValueError, match=match):
+        threshold_geometry(probs_shape, w_shape, w_strides)
+
+
+@pytest.mark.parametrize("n", [15, 6])
+def test_success_tails_on_a_broadcast_view_matches_copy_and_pallas(n):
+    rng = np.random.default_rng(400 + n)
+    s, b, m = 2, 3, 40
+    p = _probs(rng, s * b * m, n).reshape(s, b, m, n)
+    w = rng.integers(-2, n + 2, size=(1, b, 1, n)).astype(np.int32)
+    got = success_tails(torch.from_numpy(p), torch.from_numpy(w))
+    copy = success_tails(torch.from_numpy(p), torch.from_numpy(np.broadcast_to(w, p.shape).copy()))
+    assert torch.equal(got, copy)
+    want = np.array(jax_success_tails(jnp.asarray(p), jnp.asarray(w), impl="pallas",
+                                      interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,11 @@
 """Time the Lagrange encode (B4) and flash attention (B6) wrappers of one
 checkout of the port at their main shapes, beside the PyTorch call that
-computes the same function on the same inputs, and the exact GF(p) matmul
+computes the same function on the same inputs; the Poisson-binomial tails
+through ``success_tails`` as the sweep engine calls them (B1: probabilities
+(2, 256, 20 000, 15) with thresholds (1, 256, 1, 15); B2: 40 000 x 15 with a
+static tuple), and the fused coded gradient (B5) through ``coded_gradient``
+at the four shapes ``chip_smoke.py`` phase 6 times, beside two ``torch.bmm``;
+and the exact GF(p) matmul
 (B3) as the coded rounds call it: every product of the exact rounds through
 ``gf.matmul_gf`` / ``gf.bmm_gf`` (the degree-2 gradient on the transposed
 view x~^T, as the round passes it), and one whole exact round of each degree (``coded_matmul_exact`` at EC2
@@ -30,7 +35,8 @@ the order A B B A.  Each run builds its own kernels (``build/`` beside that
            2.25 integer instructions a term of ``chip_smoke.py``'s bound
            at 128 a clock per SM), and for a round none.
 
-Each kernel is first held to its plain version (B4 within 1e-5 (|g| |x|),
+Each kernel is first held to its plain version (B1 and B2 to the bit, B5
+within 1e-5 (|x| (|x| |w| + |y|)), B4 within 1e-5 (|g| |x|),
 B6 bf16 within 2^-8 max|v| + 2^-8 |ref|, the B3 products equal to the
 limb route ``matmul_gf_dot`` to the bit); a miss raises.  A round has no
 plain yardstick here: ``chip_smoke.py`` holds its result to the CPU route.
@@ -144,6 +150,61 @@ def flash_row(torch, fa) -> dict:
             "library_times": times(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))}
 
 
+def tails_rows(torch, pb) -> list[dict]:
+    """B1 on the sweep engine's layout and B2 with a static tuple, through
+    ``success_tails`` (the call the allocator makes)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    n = 15
+    probs = torch.sort(torch.rand((2, 256, 20_000, n), generator=gen, device="cuda"),
+                       dim=-1, descending=True).values
+    w = torch.randint(-2, n + 2, (1, 256, 1, n), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    if not torch.equal(pb.success_tails(probs, w), pb.success_tails_ref(probs, w)):
+        raise AssertionError("B1 differs from its plain version")
+    small = probs.reshape(-1, n)[:40_000].contiguous()
+    w_static = tuple(int(v) for v in w[0, 0, 0].tolist())
+    if not torch.equal(pb.success_tails(small, w_static),
+                       pb.success_tails_ref(small, w[0, 0, 0])):
+        raise AssertionError("B2 differs from its plain version")
+    rows = []
+    for name, p, thresholds in (("B1 success_tails (2, 256, 20 000, 15), w (1, 256, 1, 15)",
+                                 probs, w),
+                                ("B2 success_tails (40 000, 15), static tuple", small,
+                                 w_static)):
+        w_bytes = 4 * (w.numel() if thresholds is w else n)
+        rows.append({"name": name, "shape": list(p.shape),
+                     "bound_ms": (8 * p.numel() + w_bytes) / HBM_BYTES_PER_S * 1e3,
+                     "kernel": times(torch, lambda p=p, t=thresholds: pb.success_tails(p, t))})
+    return rows
+
+
+def gradient_rows(torch, cg) -> list[dict]:
+    """B5 through ``coded_gradient`` beside two ``torch.bmm`` calls."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = []
+    for nr, r_rows, c, p in ((150, 60, 3000, 1), (7, 13, 301, 3), (2, 4096, 8, 4),
+                             (2, 65_536, 8, 1)):
+        x = torch.randn((nr, r_rows, c), generator=gen, device="cuda")
+        y = torch.randn((nr, r_rows, p), generator=gen, device="cuda")
+        w = torch.randn((c, p), generator=gen, device="cuda")
+        w_b = w.expand(nr, c, p)
+        ax = x.abs()
+        bound = 1e-5 * torch.bmm(ax.transpose(1, 2), torch.bmm(ax, w_b.abs()) + y.abs())
+        if bool(((cg.coded_gradient(x, y, w) - cg.coded_gradient_ref(x, y, w)).abs()
+                 > bound).any()):
+            raise AssertionError(f"B5 {(nr, r_rows, c, p)} outside its float32 bound")
+        moved = 4 * (nr * r_rows * c + nr * r_rows * p + c * p + nr * c * p)
+        out.append({"name": f"B5 coded_gradient {(nr, r_rows, c, p)}",
+                    "shape": [nr, r_rows, c, p],
+                    "bound_ms": max(moved / HBM_BYTES_PER_S,
+                                    4 * nr * r_rows * c * p / FP32_FLOP_PER_S) * 1e3,
+                    "kernel": times(torch, lambda x=x, y=y, w=w: cg.coded_gradient(x, y, w)),
+                    "library": "two torch.bmm (x w - y, then x^T resid)",
+                    "library_times": times(torch, lambda x=x, y=y, w_b=w_b: torch.bmm(
+                        x.transpose(1, 2), torch.bmm(x, w_b) - y))})
+    return out
+
+
 P = (1 << 31) - 1
 
 
@@ -218,13 +279,16 @@ def main() -> int:
     import repro_torch
     from repro_torch.core import coded_ops as co
     from repro_torch.core import lagrange as lg
+    from repro_torch.kernels import coded_gradient as cg
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gf
     from repro_torch.kernels import lagrange_encode as le
+    from repro_torch.kernels import poisson_binomial as pb
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    rows = [encode_row(torch, le), flash_row(torch, fa), *gf_rows(torch, gf, co, lg)]
+    rows = [*tails_rows(torch, pb), *gradient_rows(torch, cg), encode_row(torch, le),
+            flash_row(torch, fa), *gf_rows(torch, gf, co, lg)]
     print(json.dumps({"label": args.label, "package": repro_torch.__file__,
                       "gpu": smi.stdout.strip().splitlines()[0], "torch": torch.__version__,
                       "rows": rows}), flush=True)
