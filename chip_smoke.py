@@ -13,7 +13,7 @@ Phases, one line each (any failure raises and exits non-zero):
      bit for bit: the per-row entry on the sweep engine's layout (probabilities
      (2, 256, 20 000, 15), thresholds (1, 256, 1, 15) read as they lie; also
      (2, 256, 2 000, 64)) and on (rows, n) thresholds, the static entry with a tuple, at
-     n = 15, 64 and 100, with its time, the plain version's time and the
+     n = 15, 64 and 100 and on the fault executor's one 15-worker row, with its time, the plain version's time and the
      card's bound for the same work (distinct threshold rows counted once).
      Every time here and in phases 6 and 9 is taken twice, the
      same way for kernel, plain version and library call (``time_ms``): a
@@ -34,7 +34,8 @@ Phases, one line each (any failure raises and exits non-zero):
   6. the coding kernels against their plain versions on the card, at the
      coded path's shapes and one ragged shape each: the exact GF(p) matmul
      (``matmul_gf_cuda``, ``bmm_gf_cuda``; equal to ``matmul_gf_dot`` to the
-     bit, residues 0 and p-1 included) at every product of the exact rounds,
+     bit, residues 0 and p-1 included) at every product of the exact rounds
+     and of phase 11's per-packet decode,
      x~^T read as it lies, and any int32 (negative values, p) in place of
      residues, each timed through the kernel alone, through ``gf.matmul_gf`` /
      ``gf.bmm_gf`` and through the ``to_gf`` passes and copy the ops layer
@@ -62,7 +63,8 @@ Phases, one line each (any failure raises and exits non-zero):
      must rise; the exact rounds print their ms per round and B3's launches,
      and no operand of theirs may be copied contiguous or pass through
      ``to_gf`` at x~'s size before B3 (``gf.operand_passes``);
-  8. the ported example, ``repro_torch.examples.coded_regression.run()``;
+  8. the ported examples, ``repro_torch.examples.coded_regression.run()``
+     and ``repro_torch.examples.quickstart.run(rounds=500)``;
   9. flash attention (B6) against its plain version ``flash_attention_ref``
      on the card: the serving prefill's shape q (4, 16, 2048, 128) against
      k, v (4, 8, 2048, 128) in bf16, fp16 and float32, the same at D = 64,
@@ -92,7 +94,30 @@ Phases, one line each (any failure raises and exits non-zero):
      5e-3, four decode steps must match a fresh flash prefill over the same
      prefix, and every logit must be finite; then one more prefill and 8
      decode steps run under ``torch.profiler`` for the device's busy share
-     and the kernels that take the most device time.
+     and the kernels that take the most device time;
+ 11. the fault-injection runtime (``repro_torch.faults``, ``runtime``):
+     (a) ``sweeps.expand("packet_erasure", rounds=20_000)`` with 8 seeds a
+     cell (72 rows, lea and static, ``preempt`` + ``packet_bernoulli`` with
+     each row's parameters) through ``faults.sweep_faults``: B1 must launch,
+     as many times as for one cell; no round recovered all-or-nothing may
+     be lost by the conserving decode, which must recover more rounds over
+     the faulted cells; each cell's LEA rates (all-or-nothing, conserving,
+     partial only) within 4.5 sd of ``BENCH_faults.json`` (a 512-round,
+     one-seed run: sd is the across-seed spread scaled to 512 rounds, not
+     below a 512-round binomial sd); wall time, row-rounds/s and peak
+     memory logged; (b) a 2 000-round, 4-seed grid on the card and on the
+     CPU from the same recorded draws, fault stream included: outcomes may
+     differ in at most 0.1% of rounds; (c) the exact per-packet decode at
+     ``CodeSpec(15, 10, 50, 2)``, x (50, 60, 3000), on 250 rounds of the
+     LEA masks of cell ``erasure_pre0.2_drop0.05``: every decodable block
+     equal to the numpy oracle, one packet with no channel equal to
+     ``coded_matmul_exact``, no operand pass of x~'s size, B3 launched;
+     (d) the float per-packet decode at ``CodeSpec(15, 10, 5, 2)`` under
+     two cells' channels (B4 launched): each block equal to the
+     single-mask decode within 1e-5 (|D| |R|), its error against the
+     uncoded product read, not checked; (e) the retry/degrade executor
+     under ``preempt`` at 0.35 (packets 4, 2 retries, partial serving) for
+     30 rounds: the outcomes sum to 30 and B2 launches.
 
 It then prints the kernels' JSON record, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  It writes no file.
@@ -206,9 +231,9 @@ def timing_fields(b_ms: float | None = None, **times: Timing | None) -> dict[str
         fields[name] = None if t is None else f"{t.one:.4f}"
         fields[f"{name}_batched"] = None if t is None else f"{t.batched:.4f}"
     if b_ms is not None:
-        fields["bound_ms"] = f"{b_ms:.4f}"
-        fields["bound_share"] = f"{b_ms / times['ms'].one:.3f}"
-        fields["bound_share_batched"] = f"{b_ms / times['ms'].batched:.3f}"
+        fields["bound_ms"] = f"{b_ms:.4g}"
+        fields["bound_share"] = f"{b_ms / times['ms'].one:.3g}"
+        fields["bound_share_batched"] = f"{b_ms / times['ms'].batched:.3g}"
     return fields
 
 
@@ -279,6 +304,7 @@ def check_kernels(kernel_mod, ref) -> dict:
         ("success_tails_cuda", "static", (1_000_000,), 64, False),
         ("success_tails_cuda_w", "per-row", (100_000,), 100, False),
         ("success_tails_cuda", "static", (100_000,), 100, False),
+        ("success_tails_cuda", "static", (1,), 15, False),     # the executor's plan
     ]
     record = {}
     for name, layout, lead, n, main_shape in cases:
@@ -370,6 +396,7 @@ def check_coding_kernels() -> dict:
         ("matmul_gf_cuda", "deg-1 decode", (1, 120, 120, 200), "rows", "residues", False),
         ("matmul_gf_cuda", "deg-2 residual", (1, 9000, 3000, 1), "rows", "residues", False),
         ("matmul_gf_cuda", "deg-2 decode", (1, 50, 99, 3000), "rows", "residues", False),
+        ("matmul_gf_cuda", "per-packet decode", (1, 50, 99, 15), "rows", "residues", False),
         ("matmul_gf_cuda", "ragged", (1, 37, 301, 19), "rows", "residues", False),
         ("matmul_gf_cuda", "any int32", (1, 300, 600, 8), "rows", "int32", False),
         ("bmm_gf_cuda", "deg-2 gradient, x~^T as it lies", (150, 3000, 60, 1), "transposed",
@@ -989,26 +1016,29 @@ def serve_lm() -> int:
     return launches
 
 
-def profile_serving(prefill, serve, params, tokens, steps: int = 8) -> dict:
-    """Device busy share and the top kernels by device time of one prefill
-    and of ``steps`` decode steps, from ``torch.profiler``'s kernel events."""
+def profile_window(fn) -> dict:
+    """Wall time, device busy time and share idle, kernel launches and the
+    top kernels by device time of ``fn()``, from ``torch.profiler``'s
+    kernel events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def window(fn):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, wall = timed(fn)
-        by_name: dict[str, float] = {}
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-        busy_ms = sum(by_name.values()) / 1e3
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        return {"wall_ms": f"{wall * 1e3:.3f}", "device_busy_ms": f"{busy_ms:.3f}",
-                "kernel_launches": len(kernels),
-                "idle_share": f"{1 - busy_ms / (wall * 1e3):.3f}",
-                "top_kernels_ms": json.dumps({n[:60]: round(us / 1e3, 3) for n, us in top})}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(fn)
+    by_name: dict[str, float] = {}
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": f"{wall * 1e3:.3f}", "device_busy_ms": f"{busy_ms:.3f}",
+            "kernel_launches": len(kernels),
+            "idle_share": f"{1 - busy_ms / (wall * 1e3):.3f}",
+            "top_kernels_ms": json.dumps({n[:60]: round(us / 1e3, 3) for n, us in top})}
 
+
+def profile_serving(prefill, serve, params, tokens, steps: int = 8) -> dict:
+    """:func:`profile_window` of one prefill and of ``steps`` decode steps."""
     state = {}
 
     def run_prefill():
@@ -1019,31 +1049,371 @@ def profile_serving(prefill, serve, params, tokens, steps: int = 8) -> dict:
             state["logits"], state["cache"] = serve(
                 params, state["cache"], {"next_token": state["logits"].argmax(-1)})
 
-    return {"prefill": window(run_prefill), f"decode_{steps}_steps": window(run_decode)}
+    return {"prefill": profile_window(run_prefill),
+            f"decode_{steps}_steps": profile_window(run_decode)}
+
+
+def fault_grid(scenarios, seeds: int, device: str):
+    """``sweep_faults``' arguments for a ``packet_erasure`` grid, ``seeds``
+    rows a cell (cell-major): the channel ``preempt`` + ``packet_bernoulli``
+    with each row's (p_preempt, p_drop), as ``benchmarks/bench_faults.py``
+    builds them."""
+    from repro_torch import faults
+    from repro_torch.core.lea import PoolLoad
+
+    lp, meta = scenarios[0].lp, [dict(sc.meta) for sc in scenarios]
+    col = lambda key: torch.tensor([m[key] for m in meta for _ in range(seeds)],
+                                   dtype=torch.float32, device=device)
+    rows = lambda attr: torch.tensor([getattr(sc, attr) for sc in scenarios
+                                      for _ in range(seeds)], dtype=torch.float32,
+                                     device=device)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=device)
+    pool = PoolLoad(kstar=i32(lp.kstar), ell_g=i32(lp.ell_g), ell_b=i32(lp.ell_b),
+                    mask=torch.ones(lp.n, dtype=torch.bool, device=device))
+    channel = faults.make_channel([("preempt", {"p_preempt": col("p_preempt")}),
+                                   ("packet_bernoulli", {"p_drop": col("p_drop")})])
+    sc = scenarios[0]
+    args = (pool, rows("p_gg"), rows("p_bb"), sc.mu_g, sc.mu_b, sc.deadline, channel,
+            meta[0]["k1star"])
+    geometry = dict(rounds=sc.rounds, strategies=("lea", "static"), r=meta[0]["r"],
+                    packets=meta[0]["packets"], p1=meta[0]["p1"])
+    return args, geometry
+
+
+def faults_grid() -> dict[str, int]:
+    """Phase 11a: the packet_erasure grid at the paper's M, 8 seeds a cell,
+    held to ``BENCH_faults.json``; returns B1's launches."""
+    from repro_torch import faults, sweeps
+    from repro_torch.kernels import poisson_binomial as pb
+    from repro_torch.random import torch_draws
+
+    seeds = 8
+    scenarios = sweeps.expand("packet_erasure", rounds=20_000)
+    args, geometry = fault_grid(scenarios, seeds, "cuda")
+    rounds = geometry["rounds"]
+    reset_all_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, wall = timed(lambda: faults.sweep_faults(torch_draws(11), *args, **geometry))
+    launches = pb.launch_counts()["success_tails_cuda_w"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # one cell alone (its first seed's row), the same geometry
+    one_args, _ = fault_grid(scenarios[:1], 1, "cuda")
+    reset_all_launch_counts()
+    faults.sweep_faults(torch_draws(12), *one_args, **geometry)
+    torch.cuda.synchronize()
+    launches_one = pb.launch_counts()["success_tails_cuda_w"]
+    if launches < 1 or launches != launches_one:
+        raise AssertionError(f"B1 launched {launches} times for the grid, {launches_one} "
+                             "for one cell")
+    aon, con, part = (x.cpu().numpy() for x in out)
+    if aon.shape != (len(scenarios) * seeds, rounds, 2):
+        raise AssertionError(f"outcomes of shape {aon.shape}")
+    if (aon & ~con).any() or (part & con).any():
+        raise AssertionError("a round recovered all-or-nothing is not recovered conserving, "
+                             "or partial overlaps full")
+    metas = [dict(sc.meta) for sc in scenarios]
+    faulted = np.repeat([m["p_preempt"] > 0 or m["p_drop"] > 0 for m in metas], seeds)
+    gain = int(con[faulted].sum()) - int(aon[faulted].sum())
+    if not gain > 0:
+        raise AssertionError(f"conserve does not beat all-or-nothing: gain {gain}")
+    bench = {c["name"]: c for c in json.loads((ROOT / "BENCH_faults.json").read_text())["results"]}
+    scale = (rounds / 512) ** 0.5       # the committed run: 512 rounds, one seed
+    lea_col = geometry["strategies"].index("lea")
+    columns = {"recovered_aon": aon, "recovered_conserve": con,
+               "recovered_partial_only": part}
+    for i, sc in enumerate(scenarios):
+        rows = slice(i * seeds, (i + 1) * seeds)
+        line = {}
+        for name, arr in columns.items():
+            per_seed = arr[rows, :, lea_col].mean(axis=1)
+            mean, sd = float(per_seed.mean()), float(per_seed.std(ddof=1))
+            want = bench[sc.name][name]
+            # the sd of a 512-round rate: the across-seed spread scaled to 512
+            # rounds, not below the binomial sd of 512 independent rounds
+            # (8 seeds can understate a spread; 1/512 where the rate is 0)
+            q = min(max(mean, 1 / 512), 1 - 1 / 512)
+            sd512 = max(sd * scale, (q * (1 - q) / 512) ** 0.5)
+            z = abs(mean - want) / sd512
+            if not np.isfinite(per_seed).all() or z > 4.5:
+                raise AssertionError(f"{sc.name} {name}: {mean} vs BENCH_faults {want} "
+                                     f"(sd at 512 rounds {sd512})")
+            line[name] = f"{mean:.4f}"
+            line[f"{name}_bench"] = want
+            line[f"{name}_z"] = f"{z:.2f}"
+        log("faults_cell", cell=sc.name, **line)
+    log("faults_grid", rows=len(scenarios) * seeds, rounds=rounds, wall_s=f"{wall:.3f}",
+        row_rounds_per_s=f"{len(scenarios) * seeds * rounds / wall:.0f}",
+        peak_memory_gib=f"{peak_gib:.2f}", b1_launches=launches,
+        b1_launches_one_cell=launches_one, conserve_gain_rounds=gain,
+        containment=True, gpu=json.dumps(nvidia_smi_line()))
+    log("faults_profile", part="grid",
+        **profile_window(lambda: faults.sweep_faults(torch_draws(11), *args, **geometry)))
+    return {"success_tails_cuda_w": launches}
+
+
+def faults_agree() -> None:
+    """Phase 11b: the fault grid on the card and on the CPU from the same
+    recorded draws, the fault stream included."""
+    from repro_torch import faults, sweeps
+    from repro_torch.random import torch_draws
+
+    scenarios = sweeps.expand("packet_erasure", rounds=2000)
+    recorder = RecordedDraws(torch_draws(13))
+    args, geometry = fault_grid(scenarios, 4, "cuda")
+    on_card = faults.sweep_faults(recorder, *args, **geometry)
+    cpu_args, _ = fault_grid(scenarios, 4, "cpu")
+    on_cpu = faults.sweep_faults(ReplayedDraws(recorder.calls), *cpu_args, **geometry,
+                                 device="cpu")
+    differ = {}
+    for field in faults.FaultOutcomes._fields:
+        a, b = getattr(on_card, field).cpu(), getattr(on_cpu, field)
+        if a.shape != b.shape:
+            raise AssertionError(f"{field}: shapes {tuple(a.shape)} != {tuple(b.shape)}")
+        differ[field] = int((a != b).any(dim=-1).sum())
+    limit = on_cpu.full_aon.shape[0] * on_cpu.full_aon.shape[1] // 1000
+    if max(differ.values()) > limit:
+        raise AssertionError(f"card and CPU differ in {differ} rounds (limit {limit})")
+    log("faults_agree", rows=on_cpu.full_aon.shape[0], rounds=on_cpu.full_aon.shape[1],
+        fault_calls=sum(1 for c in recorder.kinds if c == "fault"),
+        differing_rounds=json.dumps(differ), limit=limit)
+
+
+def fault_masks(cell: str, rounds: int, lp, mu_b: float, seed: int, packets: int = 4):
+    """The LEA column's (rounds, nr, packets) conserving masks of one
+    ``packet_erasure`` cell's channel, on a one-row rollout with load
+    parameters ``lp`` (and the cell's chain, speeds and deadline), plus the
+    all-or-nothing masks at one packet with no channel."""
+    from repro_torch import faults, sweeps
+    from repro_torch.core import throughput
+    from repro_torch.core.lea import pool_load
+    from repro_torch.random import torch_draws
+
+    sc, = [s for s in sweeps.expand("packet_erasure", rounds=rounds) if s.name == cell]
+    meta = dict(sc.meta)
+    draws = torch_draws(seed)
+    states, loads, _ = throughput.rollout_pool(draws, pool_load(lp, device="cuda"), sc.p_gg,
+                                               sc.p_bb, rounds, ("lea",))
+    channel = faults.make_channel([("preempt", {"p_preempt": meta["p_preempt"]}),
+                                   ("packet_bernoulli", {"p_drop": meta["p_drop"]})])
+    trace = faults.apply_channel(draws, channel, faults.base_trace(
+        1, rounds, lp.n, meta["r"], packets, sc.deadline, device="cuda"))
+    masks = faults.packet_on_time(states[None], loads, sc.mu_g, mu_b, sc.deadline,
+                                  meta["r"], packets, trace=trace)[0]
+    whole = faults.packet_on_time(states[None], loads, sc.mu_g, mu_b, sc.deadline,
+                                  meta["r"], 1, conserve=False)[0]
+    return masks, whole
+
+
+def faults_exact_packets() -> dict[str, int]:
+    """Phase 11c: the exact per-packet decode at the paper's widths; returns
+    B3's launches."""
+    from repro_torch import faults
+    from repro_torch.core import coded_ops as co
+    from repro_torch.core import lagrange as lg
+    from repro_torch.core.lea import LoadParams
+    from repro_torch.kernels import gf
+
+    spec = lg.CodeSpec(15, 10, 50, 2)                  # nr = 150, K* = 99
+    rows, cols, packets, rounds = 60, 3000, 4, 250
+    rng = np.random.default_rng(64)
+    x = rng.integers(0, P, size=(spec.k, rows, cols), dtype=np.int32)
+    w = rng.integers(0, P, size=(cols,), dtype=np.int32)
+    masks, whole = fault_masks("erasure_pre0.2_drop0.05", rounds, LoadParams(15, 99, 10, 3),
+                               3.0, seed=14, packets=packets)
+    coded = co.encode_dataset_modp(spec, x, device="cuda")
+    w_dev = torch.as_tensor(w, device="cuda")
+    reset_all_launch_counts()
+    gf.reset_operand_passes()
+    outs, oks = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for m in range(rounds):
+        out, ok = faults.coded_matmul_exact_packets(coded, w_dev, masks[m])
+        outs.append(out)
+        oks.append(ok)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = gf.launch_counts()["matmul_gf_cuda"]
+    passes = no_x_tilde_passes(gf.operand_passes(), coded)
+    if launches < 1:
+        raise AssertionError("the exact per-packet decode never launched B3")
+    want = lg.matmul_modp(x.reshape(-1, cols).astype(np.int64),
+                          w.astype(np.int64)[:, None]).reshape(spec.k, rows)
+    rp = rows // packets
+    ok_np = torch.stack(oks).cpu().numpy()
+    for m in range(rounds):
+        got = outs[m].cpu().numpy().astype(np.int64)
+        for q in np.nonzero(ok_np[m])[0]:
+            block = slice(q * rp, (q + 1) * rp)
+            if not np.array_equal(got[:, block], want[:, block]):
+                raise AssertionError(f"round {m} packet {q}: differs from the numpy oracle")
+    if not ok_np.any():
+        raise AssertionError("no packet block was decodable in any round")
+    # one packet, no channel: the per-packet path is coded_matmul_exact
+    for m in range(8):
+        one, ok1 = faults.coded_matmul_exact_packets(coded, w_dev, whole[m])
+        ref, ok_ref = co.coded_matmul_exact(coded, w_dev, whole[m, :, 0])
+        if bool(ok1[0]) != bool(ok_ref) or not torch.equal(one, ref):
+            raise AssertionError(f"round {m}: one packet differs from coded_matmul_exact")
+    log("faults_exact_packets", spec="CodeSpec(15,10,50,2)", x=(spec.k, rows, cols),
+        packets=packets, rounds=rounds, decodable_blocks=int(ok_np.sum()),
+        rounds_all_blocks=int(ok_np.all(axis=1).sum()), bit_equal_numpy=True,
+        one_packet_equals_exact=8, b3_launches=launches,
+        ms_per_round=f"{wall / rounds * 1e3:.3f}", operand_passes=json.dumps(passes))
+
+    def twenty_rounds():
+        for m in range(20):
+            faults.coded_matmul_exact_packets(coded, w_dev, masks[m])
+    log("faults_profile", part="exact_packets_20_rounds", **profile_window(twenty_rounds))
+    return {"matmul_gf_cuda": launches}
+
+
+def faults_float_packets() -> dict[str, int]:
+    """Phase 11d: the float per-packet decode under two cells' channels,
+    through B4's encode; returns B4's launches.
+
+    Checked: every decodable block equals the single-mask device decode of
+    the same rows (``coded_matmul_device`` with that packet's mask) within
+    the float32 reduction-order bound 1e-5 (|D| |R|) elementwise, D the
+    block's decode matrix and R its received rows.  Read, not checked: the
+    error against the uncoded X_j @ w.  A preempted worker conserves a
+    prefix of its chunks, so a block's received set mixes two workers'
+    strided Chebyshev nodes (and, under drops, any K* nodes), where the
+    float32 decode at k = 5 can lose every digit; phase 7's rounds, whole
+    workers only, stay within 1e-2.  The line logs the error's quantiles
+    and the blocks above 1e-2.
+    """
+    from repro_torch import faults
+    from repro_torch.core import coded_ops as co
+    from repro_torch.core import lagrange as lg
+    from repro_torch.core.lea import LoadParams
+    from repro_torch.kernels import lagrange_encode as le
+
+    spec = lg.CodeSpec(15, 10, 5, 2)                   # K* = 9 <= r
+    kstar = spec.recovery_threshold
+    rows, cols, rounds, packets = 60, 3000, 100, 4
+    rng = np.random.default_rng(65)
+    x = torch.as_tensor(rng.normal(size=(spec.k, rows, cols)), dtype=torch.float32,
+                        device="cuda")
+    w = torch.as_tensor(rng.normal(size=(cols,)), dtype=torch.float32, device="cuda")
+    reset_all_launch_counts()
+    coded = co.encode_dataset(spec, x)
+    torch.cuda.synchronize()
+    launches = le.launch_counts()["encode_matrix_cuda"]
+    if launches < 1:
+        raise AssertionError("the float per-packet path never launched B4")
+    want = torch.einsum("krc,c->kr", x, w)
+    results = torch.tensordot(coded.x_tilde, w, dims=1)           # (nr, rows)
+    rp = rows // packets
+    for cell in ("erasure_pre0.2_drop0", "erasure_pre0.2_drop0.05"):
+        masks, _ = fault_masks(cell, rounds, LoadParams(15, kstar, 10, 0), 0.5, seed=15)
+        rels, worst_used = [], 0.0
+        for m in range(rounds):
+            out, ok = faults.coded_matmul_packets(coded, w, masks[m])
+            for q in torch.nonzero(ok)[:, 0].tolist():
+                block = slice(q * rp, (q + 1) * rp)
+                one, _ = co.coded_matmul_device(coded, w, masks[m][:, q])
+                received = co.received_indices(masks[m][:, q], kstar)
+                d = lg.decode_matrix_jax(spec, received)
+                bound = FP32_REL * (d.abs() @ results[received][:, block].abs())
+                diff = (out[:, block] - one[:, block]).abs()
+                if bool((diff > bound).any()):
+                    raise AssertionError(f"{cell} round {m} packet {q}: the block differs "
+                                         f"from the single-mask decode by {float(diff.max())}")
+                worst_used = max(worst_used, float((diff / bound.clamp_min(1e-30)).max()))
+                rels.append(float(torch.linalg.norm(out[:, block] - want[:, block])
+                                  / torch.linalg.norm(want[:, block])))
+        if not rels:
+            raise AssertionError(f"{cell}: no float packet block was decodable")
+        rels = np.asarray(rels)
+        log("faults_float_packets", cell=cell, spec="CodeSpec(15,10,5,2)",
+            x=(spec.k, rows, cols), rounds=rounds, decodable_blocks=len(rels),
+            equals_single_mask_decode=True, tolerance_used=f"{worst_used:.3f}",
+            rel_err_vs_uncoded_median=f"{np.median(rels):.3e}",
+            rel_err_vs_uncoded_p90=f"{np.quantile(rels, 0.9):.3e}",
+            rel_err_vs_uncoded_max=f"{rels.max():.3e}",
+            blocks_over_1e_2=int((rels > 1e-2).sum()), b4_launches=launches)
+    return {"encode_matrix_cuda": launches}
+
+
+def faults_executor() -> dict[str, int]:
+    """Phase 11e: the retry/degrade executor on the card, as the JAX
+    package's fault benchmark runs it; returns B2's launches."""
+    from repro_torch import faults
+    from repro_torch.kernels import poisson_binomial as pb
+    from repro_torch.runtime.fault_tolerance import (OUTCOMES, CodedDataParallelExecutor,
+                                                     CodedDPConfig)
+
+    cfg = CodedDPConfig(packets=4, max_retries=2, allow_partial=True, p1=1)
+    ex = CodedDataParallelExecutor(
+        cfg, lambda params, shard: {k: torch.zeros_like(v) for k, v in params.items()},
+        draws=0, channel=faults.make_channel([("preempt", {"p_preempt": 0.35})]))
+    params = {"w": torch.zeros(2, device="cuda")}
+    batch = {"x": torch.zeros((cfg.k, 2), device="cuda")}
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(30):
+        grads, info = ex.round(params, batch)
+        if (grads is None) != (info["outcome"] == "dropped"):
+            raise AssertionError(f"round {ex.rounds}: gradient and outcome disagree: {info}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = pb.launch_counts()["success_tails_cuda"]
+    if sum(ex.outcomes.values()) != ex.rounds or ex.rounds != 30:
+        raise AssertionError(f"outcomes {ex.outcomes} do not sum to {ex.rounds} rounds")
+    if launches < 1:
+        raise AssertionError("the executor never launched B2")
+    log("faults_executor", n_workers=cfg.n_workers, r=cfg.r, k=cfg.k, packets=cfg.packets,
+        max_retries=cfg.max_retries, p_preempt=0.35, rounds=ex.rounds,
+        outcomes=json.dumps({k: ex.outcomes[k] for k in OUTCOMES}),
+        b2_launches=launches, ms_per_round=f"{wall / 30 * 1e3:.3f}")
+
+    def ten_rounds():
+        for _ in range(10):
+            ex.round(params, batch)
+    log("faults_profile", part="executor_10_rounds", **profile_window(ten_rounds))
+    return {"success_tails_cuda": launches}
+
+
+def faults_path() -> dict[str, int]:
+    """Phase 11: the fault-injection runtime.  Each part sets the counts to
+    0 before its own work and reads them after it; returns the launches."""
+    launches = faults_grid()
+    faults_agree()
+    launches.update(faults_exact_packets())
+    launches.update(faults_float_packets())
+    launches.update(faults_executor())
+    log("faults_path", launches=json.dumps(launches))
+    return launches
 
 
 class RecordedDraws:
     """Hands out a Draws' numbers and keeps a CPU copy of each, in order, so
-    the same numbers can be replayed to the CPU engine (phase 5)."""
+    the same numbers can be replayed to the CPU engine (phases 5 and 11)."""
 
     def __init__(self, inner):
-        self.inner, self.calls = inner, []
+        self.inner, self.calls, self.kinds = inner, [], []
 
-    def _keep(self, t):
+    def _keep(self, kind, t):
         self.calls.append(t.cpu())
+        self.kinds.append(kind)
         return t
 
     def initial(self, *a):
-        return self._keep(self.inner.initial(*a))
+        return self._keep("initial", self.inner.initial(*a))
 
     def steps(self, *a):
-        return self._keep(self.inner.steps(*a))
+        return self._keep("steps", self.inner.steps(*a))
 
     def static(self, *a):
-        return self._keep(self.inner.static(*a))
+        return self._keep("static", self.inner.static(*a))
 
     def single(self, *a):
-        return self._keep(self.inner.single(*a))
+        return self._keep("single", self.inner.single(*a))
+
+    def fault(self, *a):
+        return self._keep("fault", self.inner.fault(*a))
 
 
 class ReplayedDraws:
@@ -1053,7 +1423,7 @@ class ReplayedDraws:
     def _next(self, *a):
         return self.calls.pop(0)
 
-    initial = steps = static = single = _next
+    initial = steps = static = single = fault = _next
 
 
 def main() -> int:
@@ -1161,14 +1531,19 @@ def main() -> int:
     # -- phase 7: the coded path -------------------------------------------------
     launches_coded = coded_path()
 
-    # -- phase 8: the ported example ---------------------------------------------
-    from repro_torch.examples import coded_regression
+    # -- phase 8: the ported examples --------------------------------------------
+    from repro_torch.examples import coded_regression, quickstart
     t0 = time.perf_counter()
     ex = coded_regression.run(device="cuda")
     torch.cuda.synchronize()
     log("example", wall_s=f"{time.perf_counter() - t0:.3f}",
         throughput=json.dumps(ex["throughput"]), loss=json.dumps(ex["loss"]),
         exact_checked=ex["exact_checked"])
+    t0 = time.perf_counter()
+    qs = quickstart.run(device="cuda", rounds=500, echo=lambda line: None)
+    torch.cuda.synchronize()
+    log("example_quickstart", wall_s=f"{time.perf_counter() - t0:.3f}",
+        rows=json.dumps(qs["lines"]))
 
     # -- phase 9: flash attention against its plain version ----------------------
     record.update(check_flash_kernel())
@@ -1176,15 +1551,24 @@ def main() -> int:
     # -- phase 10: the LM serving path -------------------------------------------
     launches_lm = serve_lm()
 
+    # -- phase 11: the fault-injection runtime ------------------------------------
+    launches_faults = faults_path()
+
     kernels = []
     launches = {"success_tails_cuda_w": launches_main["success_tails_cuda_w"],
                 "success_tails_cuda": launches_static["success_tails_cuda"],
                 **launches_coded, "flash_attention_cuda": launches_lm}
+    by_path = {"fig3": {"success_tails_cuda_w": launches_main["success_tails_cuda_w"]},
+               "compare": {"success_tails_cuda": launches_static["success_tails_cuda"]},
+               "coded": launches_coded, "serve": {"flash_attention_cuda": launches_lm},
+               "faults": launches_faults}
     for name, (source, replaces) in KERNELS.items():
         entry = record[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            "launches_by_path": {path: counts[name] for path, counts in by_path.items()
+                                 if name in counts},
             "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"],

@@ -108,8 +108,15 @@ def sample_trajectory(
         return _freeze(s0[:, None, :], worker_mask)
     u = draws.steps(b, rounds, n).to(p_gg.device)        # (B, M-1, n)
     pg, pb = _step_chains(p_gg, p_bb)
-    pref1 = u < pg                                       # f_t(good)
-    pref0 = u < (1.0 - pb)                               # f_t(bad)
+    return _freeze(_run_from(s0, u, pg, 1.0 - pb), worker_mask)
+
+
+def _run_from(s0: torch.Tensor, u: torch.Tensor, p_stay1, p_leave0) -> torch.Tensor:
+    """(B, M, n) int32 states from (B, n) round-0 states and (B, M-1, n)
+    transition uniforms: ``f_t(good) = [u_t < p_stay1]``, ``f_t(bad) =
+    [u_t < p_leave0]``, prefixes composed by the doubling scan."""
+    pref1 = u < p_stay1                                  # f_t(good)
+    pref0 = u < p_leave0                                 # f_t(bad)
     steps = u.shape[1]
     offset = 1
     while offset < steps:
@@ -123,7 +130,30 @@ def sample_trajectory(
         pref1 = torch.cat([pref1[:, :offset], new1], dim=1)
         offset *= 2
     tail = torch.where(s0[:, None, :] == 1, pref1, pref0).to(torch.int32)
-    return _freeze(torch.cat([s0[:, None, :], tail], dim=1), worker_mask)
+    return torch.cat([s0[:, None, :], tail], dim=1)
+
+
+def sample_trajectory_from(
+    u: torch.Tensor | None,
+    p_stay1,
+    p_stay0,
+    init: torch.Tensor,
+) -> torch.Tensor:
+    """(B, M, n) trajectories of a 2-state chain from an EXPLICIT round 0.
+
+    The fault processes' twin of :func:`sample_trajectory`: ``init`` (B, n)
+    IS round 0 (no stationary draw: a fleet starts alive, a channel starts
+    clear), ``u`` holds the (B, M-1, n) transition uniforms (``None`` or
+    zero rounds for M = 1), and ``p_stay1`` / ``p_stay0`` are P[1 -> 1] /
+    P[0 -> 0], float32 tensors broadcastable against ``u``.  The same
+    per-round maps and doubling scan as :func:`sample_trajectory`, so on
+    the JAX package's uniforms it equals ``sample_trajectory_from`` there to
+    the bit.
+    """
+    init = init.to(torch.int32)
+    if u is None or u.shape[1] == 0:
+        return init[:, None, :]
+    return _run_from(init, u, p_stay1, 1.0 - p_stay0)
 
 
 def sample_trajectory_scan(

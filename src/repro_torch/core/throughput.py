@@ -103,12 +103,14 @@ def _load_fields(load):
     return load.kstar, load.ell_g, load.ell_b, None
 
 
-def _p_good_rows(states, p_gg, p_bb, pi_g, alloc_names) -> torch.Tensor:
-    """(A, B, M, n) predicted p_good per policy strategy."""
+def _p_good_rows(states, p_gg, p_bb, pi_g, alloc_names, draws=None) -> torch.Tensor:
+    """(A, B, M, n) predicted p_good per policy strategy; randomised
+    policies take their draws from ``draws``."""
     from repro_torch.policies.api import PolicyContext
 
     registry = _policy_registry()
-    ctx = PolicyContext(states=states, p_gg=p_gg, p_bb=p_bb, pi_g=pi_g)
+    ctx = PolicyContext(states=states, p_gg=p_gg, p_bb=p_bb, pi_g=pi_g,
+                        draws=draws)
     return torch.stack([registry.resolve(s).p_good_trajectory(ctx)
                         for s in alloc_names])
 
@@ -123,7 +125,7 @@ def engine_preamble(draws, load, p_gg, p_bb, rounds: int, strategies):
                                        markov.chain_row0(p_bb))
     alloc_names = allocator_strategies(strategies)
     if alloc_names:
-        p_alloc = _p_good_rows(states, p_gg, p_bb, pi_g, alloc_names)
+        p_alloc = _p_good_rows(states, p_gg, p_bb, pi_g, alloc_names, draws)
     else:
         p_alloc = torch.zeros((0,) + tuple(states.shape), dtype=torch.float32,
                               device=states.device)

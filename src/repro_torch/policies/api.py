@@ -29,13 +29,17 @@ class PolicyContext(NamedTuple):
 
     ``p_gg``/``p_bb`` are the TRUE chains — (B, n) stationary or (B, M, n)
     time-varying (row t governs the transition into round t).  Only genie
-    policies (``uses_model=True``) may read them.
+    policies (``uses_model=True``) may read them.  ``draws`` is the run's
+    draws source; only randomised policies (``thompson``) take from it,
+    through :class:`~repro_torch.random.BetaDraws`, so deterministic
+    policies give the same results whether or not it is there.
     """
 
     states: torch.Tensor      # (B, M, n) int32 observed trajectories, 1=good
     p_gg: torch.Tensor        # (B, n) or (B, M, n)
     p_bb: torch.Tensor        # (B, n) or (B, M, n)
     pi_g: torch.Tensor        # (B, n) stationary dist of the round-0 chain
+    draws: object = None      # the run's draws source
 
 
 @dataclasses.dataclass(frozen=True)

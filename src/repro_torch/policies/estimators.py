@@ -20,11 +20,14 @@ Catalogue:
                        confidence bonus, clipped.  ``log1p`` differs by an
                        ulp between XLA and PyTorch on some inputs, so the
                        bonus agrees with the JAX package to round-off.
+  ``thompson``       — Beta-posterior Thompson sampling on the transition
+                       probabilities: each round draws p_gg / p_bb from the
+                       posterior the counts induce (the run's
+                       :class:`~repro_torch.random.BetaDraws`) and predicts
+                       with the sample.  On the JAX package's variates it
+                       equals ``thompson`` there.
   ``oracle``         — genie-aided optimum of Thm. 4.6: the true one-step
                        conditional given the previous true state.
-
-Beta-posterior Thompson sampling (``thompson`` in the JAX package) needs
-Beta draws on an explicit generator and is not ported yet.
 
 All count-based variants share one prediction rule given counts
 (:func:`predict_from_counts`), so they differ only in how history is
@@ -36,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import lea as lea_mod
+from repro_torch.random import BetaDraws, require
 
 from .api import Policy, PolicyContext
 from .registry import register
@@ -209,6 +213,21 @@ def discounted_lea(gamma: float, name: str | None = None) -> Policy:
         name=name or _discount_name(gamma), trajectory=traj,
         description=f"discounted LEA: counts decayed by gamma={gamma:g} per round",
     )
+
+
+@register("thompson", description="Beta-posterior Thompson sampling on transition probs")
+def _thompson(ctx: PolicyContext) -> torch.Tensor:
+    """Posterior draw per round: p_gg ~ Beta(C_gg+1, C_gb+1) and
+    p_bb ~ Beta(C_bb+1, C_bg+1) (the Laplace-smoothed counts ARE the
+    posterior parameters), predict with the sample.  Rounds with no data
+    draw from the uniform prior — native exploration."""
+    draws = require(ctx.draws, BetaDraws)
+    counts = counts_before_round(ctx.states)
+    s_gg = draws.beta(counts[..., 0] + 1.0, counts[..., 1] + 1.0)
+    s_bb = draws.beta(counts[..., 3] + 1.0, counts[..., 2] + 1.0)
+    s_gg, s_bb = (s.to(ctx.states.device, torch.float32) for s in (s_gg, s_bb))
+    prev_state = prev_state_rows(ctx.states)
+    return torch.where(prev_state == 1, s_gg, 1.0 - s_bb)
 
 
 @register("ucb", description="optimistic UCB: LEA estimate + sqrt(2 ln m / visits)")

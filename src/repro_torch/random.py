@@ -24,6 +24,24 @@ backed by ``jax.random`` that replays, position for position, the uniforms
 the JAX package draws on the same key — bit-level parity of the whole
 engine without porting threefry.  The port never imports that source.
 
+Two more kinds of draws live in protocols of their own, checked only
+where they are taken, so a source built for the engine alone still
+passes :func:`as_draws`:
+
+  * :class:`FaultDraws` — ``fault(rows, position, part, shape)``, the
+    uniforms of part ``part`` of the fault injector at ``position`` of a
+    channel, (rows, *shape).  The parts: ``chain`` (rounds-1, n) transition
+    uniforms, ``hit`` / ``frac`` (rounds, n), ``drop`` (rounds, n, r,
+    packets) and ``event`` (rounds,) (:mod:`repro_torch.faults.channels`);
+  * :class:`BetaDraws` — ``beta(a, b)``, one Beta(a, b) variate per element
+    of the float32 tensors ``a`` and ``b`` (``thompson``'s posterior draws).
+
+:class:`TorchDraws` takes each of these from a generator of its own,
+seeded from the engine generator's seed and a fixed tag, so asking for
+fault or Beta draws never moves the engine's uniforms: a run with no
+channel (or an empty one) and no randomised policy draws exactly what
+:func:`~repro_torch.core.throughput.simulate_strategies_pool` draws.
+
 Stream note: :class:`TorchDraws` hands out its generator's numbers in call
 order, so a chunked run (``round_chunk``) draws the static resampler's
 numbers block by block and its stream differs from the unchunked run's
@@ -55,12 +73,47 @@ class Draws(Protocol):
                n: int) -> torch.Tensor: ...
 
 
+@runtime_checkable
+class FaultDraws(Protocol):
+    """A source of the fault channels' float32 uniforms (module docstring)."""
+
+    def fault(self, rows: int, position: int, part: str,
+              shape: tuple[int, ...]) -> torch.Tensor: ...
+
+
+@runtime_checkable
+class BetaDraws(Protocol):
+    """A source of Beta variates for randomised policies."""
+
+    def beta(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor: ...
+
+
+# tags of the derived generators (the JAX package's fold_in tags of the
+# fault and policy streams)
+FAULT_TAG = 0x7F4A7C15 % (2**31)
+POLICY_TAG = 0x9E3779B9 % (2**31)
+
+
 class TorchDraws:
-    """The default :class:`Draws`: one ``torch.Generator`` on the device."""
+    """The default source of every draw: ``torch.Generator`` s on the device.
+
+    Engine uniforms come from ``generator``; fault uniforms and Beta
+    variates from generators of their own, made on first use and seeded
+    with the engine generator's initial seed plus a tag.
+    """
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
         self.device = generator.device
+        self._derived: dict[int, torch.Generator] = {}
+
+    def _stream(self, tag: int) -> torch.Generator:
+        gen = self._derived.get(tag)
+        if gen is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed((self.generator.initial_seed() + tag) % (2**63))
+            self._derived[tag] = gen
+        return gen
 
     def _uniform(self, *shape: int) -> torch.Tensor:
         return torch.rand(shape, generator=self.generator, device=self.device,
@@ -77,6 +130,24 @@ class TorchDraws:
 
     def single(self, rows, rounds, start, stop, n):
         return self._uniform(rows, stop - start, n)
+
+    def fault(self, rows, position, part, shape):
+        return torch.rand((rows,) + tuple(shape), generator=self._stream(FAULT_TAG),
+                          device=self.device, dtype=torch.float32)
+
+    def beta(self, a, b):
+        gen = self._stream(POLICY_TAG)
+        x = torch._standard_gamma(a.to(self.device, torch.float32), generator=gen)
+        y = torch._standard_gamma(b.to(self.device, torch.float32), generator=gen)
+        return x / (x + y)
+
+
+def require(draws, protocol):
+    """``draws`` if it answers ``protocol``'s calls, else ``TypeError``."""
+    if not isinstance(draws, protocol):
+        raise TypeError(f"{type(draws).__name__} does not answer "
+                        f"{protocol.__name__}'s calls")
+    return draws
 
 
 def torch_draws(seed: int, device=None) -> TorchDraws:
@@ -98,4 +169,5 @@ def as_draws(draws, device) -> Draws:
     raise TypeError(f"draws must be a Draws or an int seed, got {type(draws)!r}")
 
 
-__all__ = ["Draws", "TorchDraws", "as_draws", "torch_draws"]
+__all__ = ["BetaDraws", "Draws", "FaultDraws", "TorchDraws", "as_draws",
+           "require", "torch_draws"]

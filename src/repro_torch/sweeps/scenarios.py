@@ -24,6 +24,9 @@ Computing* (arXiv:2206.09399)):
                           to the widest ramp point, again ONE engine call
   * ``straggler_slack`` — speed-ratio x deadline grid: how much straggler
                           slack LEA can squeeze vs static
+  * ``packet_erasure``  — preemption x packet-loss grid on the Fig. 3 pool,
+                          its channel and packet geometry in ``meta``
+                          (scored by :mod:`repro_torch.faults`)
 
 Non-stationary families (the ``repro_torch.policies`` proving grounds — chains
 whose parameters move, where windowed/discounted estimators beat vanilla
@@ -426,6 +429,45 @@ def computed_drift(
             meta=(("period", period), ("lam", lam),
                   ("base_pi", base_pi), ("amp", amp)),
         ))
+    return tuple(scenarios)
+
+
+@register("packet_erasure")
+def packet_erasure(
+    p_preempts: tuple[float, ...] = (0.0, 0.2, 0.4),
+    p_drops: tuple[float, ...] = (0.0, 0.05, 0.15),
+    packets: int = 4,
+    p1: int = 1,
+    k1: int = 25,
+    rounds: int = 2_000,
+) -> tuple[Scenario, ...]:
+    """Fault grid for the ``repro.faults`` runtime: preemption x packet loss.
+
+    A (p_preempt x p_drop) product grid on the Fig. 3 worker pool; each
+    cell's fault channel — a ``preempt`` ramp composed with iid
+    ``packet_bernoulli`` erasure — and its packet geometry ride in ``meta``
+    (the registry stays fault-agnostic).  A caller turns the meta columns
+    into per-row channel parameters and scores every cell's rounds under
+    three decode modes (all-or-nothing / partial-work conserving /
+    hierarchical layer-1, threshold ``K1 = (k1-1) deg_f + 1``) on the same
+    trajectories and the same fault realisations, in ONE pass of
+    :func:`repro_torch.faults.engine.sweep_faults`.
+    """
+    lp = _sim_lp()
+    k1star = CodeSpec(SIM.n, SIM.r, k1, SIM.deg_f).recovery_threshold
+    scenarios = []
+    for p_pre in p_preempts:
+        for p_drop in p_drops:
+            scenarios.append(Scenario(
+                name=f"erasure_pre{p_pre:g}_drop{p_drop:g}",
+                family="packet_erasure", lp=lp,
+                p_gg=_const(SIM.n, 0.8), p_bb=_const(SIM.n, 0.7),
+                mu_g=SIM.mu_g, mu_b=SIM.mu_b, deadline=SIM.deadline,
+                rounds=rounds,
+                meta=(("p_preempt", p_pre), ("p_drop", p_drop),
+                      ("packets", packets), ("p1", p1), ("k1", k1),
+                      ("k1star", k1star), ("r", SIM.r)),
+            ))
     return tuple(scenarios)
 
 

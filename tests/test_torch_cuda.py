@@ -355,3 +355,155 @@ def test_lm_smoke_serving_on_the_card_matches_the_cpu(cuda_device):
         got, cache = serve(on_card, cache, {"next_token": tok.to(cuda_device)})
         want, cache_cpu = serve(params, cache_cpu, {"next_token": tok})
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+class _Recorded:
+    """Hands out a draws source's numbers, keeping a CPU copy of each in
+    order, fault uniforms included."""
+
+    def __init__(self, inner):
+        self.inner, self.calls = inner, []
+
+    def _keep(self, t):
+        self.calls.append(t.cpu())
+        return t
+
+    def initial(self, *a):
+        return self._keep(self.inner.initial(*a))
+
+    def steps(self, *a):
+        return self._keep(self.inner.steps(*a))
+
+    def static(self, *a):
+        return self._keep(self.inner.static(*a))
+
+    def single(self, *a):
+        return self._keep(self.inner.single(*a))
+
+    def fault(self, *a):
+        return self._keep(self.inner.fault(*a))
+
+    def beta(self, *a):
+        return self._keep(self.inner.beta(*a))
+
+
+class _Replayed:
+    def __init__(self, calls):
+        self.calls = list(calls)
+
+    def _next(self, *a):
+        return self.calls.pop(0)
+
+    initial = steps = static = single = fault = beta = _next
+
+
+def _erasure_args(device, rounds, seeds):
+    from repro_torch import faults, sweeps
+    from repro_torch.core.lea import pool_load
+    scen = sweeps.expand("packet_erasure", rounds=rounds)
+    meta = [dict(s.meta) for s in scen]
+    col = lambda key: torch.tensor([m[key] for m in meta for _ in range(seeds)],
+                                   dtype=torch.float32, device=device)
+    p = lambda attr: torch.tensor([getattr(s, attr) for s in scen for _ in range(seeds)],
+                                  dtype=torch.float32, device=device)
+    channel = faults.make_channel([("preempt", {"p_preempt": col("p_preempt")}),
+                                   ("packet_bernoulli", {"p_drop": col("p_drop")})])
+    args = (pool_load(scen[0].lp, device=device), p("p_gg"), p("p_bb"), scen[0].mu_g,
+            scen[0].mu_b, scen[0].deadline, channel, meta[0]["k1star"])
+    return args, dict(rounds=rounds, strategies=("lea", "static"), r=meta[0]["r"],
+                      packets=meta[0]["packets"], p1=meta[0]["p1"])
+
+
+@pytest.mark.cuda
+def test_fault_sweep_on_the_card_matches_the_replayed_cpu_run(cuda_device):
+    """The packet_erasure grid (300 rounds, 2 seeds a cell) on the card and
+    on the CPU from the same draws: the same outcomes (argmax ties could
+    flip a round; the DP kernel repeats the plain version's roundings, so
+    none is expected), B1 launched once."""
+    from repro_torch import faults
+    from repro_torch.random import torch_draws
+    recorder = _Recorded(torch_draws(3, cuda_device))
+    args, geometry = _erasure_args(cuda_device, 300, 2)
+    before = launch_counts()["success_tails_cuda_w"]
+    on_card = faults.sweep_faults(recorder, *args, **geometry, device=cuda_device)
+    assert launch_counts()["success_tails_cuda_w"] == before + 1
+    cpu_args, _ = _erasure_args("cpu", 300, 2)
+    on_cpu = faults.sweep_faults(_Replayed(recorder.calls), *cpu_args, **geometry,
+                                 device="cpu")
+    for got, want in zip(on_card, on_cpu):
+        assert int((got.cpu() != want).any(dim=-1).sum()) <= 300 * 18 // 1000
+    assert not bool((on_card.full_aon & ~on_card.full_conserve).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packets,d", [(4, 1), (3, 2), (1, 1)])
+def test_exact_packet_decode_on_a_strided_row_block_is_the_plain_route(cuda_device,
+                                                                        packets, d):
+    """coded_matmul_exact_packets on the card (B3 on the row-block views'
+    gathers, x~ read as it lies) equals the CPU plain route bit for bit."""
+    from repro_torch import faults
+    from repro_torch.core import coded_ops, lagrange
+    from repro_torch.kernels import gf
+    rng = np.random.default_rng(packets * 10 + d)
+    spec = lagrange.CodeSpec(15, 10, 50, 2)
+    x = rng.integers(0, (1 << 31) - 1, size=(spec.k, 12, 257), dtype=np.int32)
+    w = rng.integers(0, (1 << 31) - 1, size=(257, d), dtype=np.int32)
+    masks = rng.random((6, spec.nr, packets)) < 0.8
+    card = coded_ops.encode_dataset_modp(spec, x, device=cuda_device)
+    cpu = coded_ops.encode_dataset_modp(spec, x, device="cpu")
+    w_card = torch.as_tensor(w, device=cuda_device)
+    gf.reset_operand_passes()
+    before = gf.launch_counts()["matmul_gf_cuda"]
+    for m in masks:
+        got, ok = faults.coded_matmul_exact_packets(card, w_card, torch.as_tensor(m, device=cuda_device))
+        want, ok_cpu = faults.coded_matmul_exact_packets(cpu, torch.as_tensor(w), torch.as_tensor(m))
+        assert torch.equal(ok.cpu(), ok_cpu)
+        assert torch.equal(got.cpu(), want)
+    assert gf.launch_counts()["matmul_gf_cuda"] == before + len(masks) * (1 + packets)
+    passes = gf.operand_passes()
+    assert passes["contiguous"] == 0 and passes["largest"] < card.x_tilde.numel()
+
+
+@pytest.mark.cuda
+def test_executor_plans_a_15_worker_row_through_b2(cuda_device):
+    """The executor's plan is one static-threshold launch on a (1, 15) row,
+    with the CPU plain route's loads."""
+    from repro_torch.core import lea
+    from repro_torch.runtime.fault_tolerance import CodedDPConfig, _plan_round
+    cfg = CodedDPConfig(n_workers=15, r=10, k=50)
+    lp = cfg.load_params
+    rng = np.random.default_rng(15)
+    counts = torch.as_tensor(rng.integers(0, 20, (15, 4)).astype(np.float32))
+    prev = torch.as_tensor(rng.integers(0, 2, 15).astype(np.int32))
+    live = torch.as_tensor(rng.random(15) < 0.9)
+    for seen in (False, True):
+        est = lea.EstimatorState(counts=counts, prev_state=prev, seen_prev=torch.tensor(seen))
+        card = lea.EstimatorState(*(t.to(cuda_device) for t in est))
+        before = launch_counts()["success_tails_cuda"]
+        loads, i_star = _plan_round(card, live.to(cuda_device), lp)
+        torch.cuda.synchronize()
+        assert launch_counts()["success_tails_cuda"] == before + 1
+        want, want_i = _plan_round(est, live, lp)
+        assert torch.equal(loads.cpu(), want) and int(i_star) == int(want_i)
+        assert not bool(loads.cpu()[~live].any())
+
+
+@pytest.mark.cuda
+def test_thompson_on_the_card_matches_the_replayed_cpu_run(cuda_device):
+    """``thompson``'s Beta draws come from the card's own generator (a
+    stream of their own, so lea and static see the same uniforms as
+    without it); replayed on the CPU, the same successes."""
+    from repro_torch.core import throughput
+    from repro_torch.core.lea import LoadParams
+    from repro_torch.random import torch_draws
+    args = (LoadParams(15, 99, 10, 3), [0.8] * 15, [0.7] * 15, 10.0, 3.0, 1.0, 2000)
+    recorder = _Recorded(torch_draws(5, cuda_device))
+    got = throughput.simulate_strategies(recorder, *args, ("lea", "thompson", "static"),
+                                         device=cuda_device)
+    want = throughput.simulate_strategies(_Replayed(recorder.calls), *args,
+                                          ("lea", "thompson", "static"), device="cpu")
+    assert int((got.cpu() != want).any(dim=-1).sum()) <= 2
+    alone = throughput.simulate_strategies(torch_draws(5, cuda_device), *args,
+                                           ("lea", "static"), device=cuda_device)
+    assert torch.equal(got[:, [0, 2]], alone)
+    assert 0.0 < float(got[:, 1].float().mean()) <= 1.0
