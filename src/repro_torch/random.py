@@ -36,6 +36,10 @@ passes :func:`as_draws`:
   * :class:`BetaDraws` — ``beta(a, b)``, one Beta(a, b) variate per element
     of the float32 tensors ``a`` and ``b`` (``thompson``'s posterior draws).
 
+:class:`RecordedDraws` keeps a copy of every draw another source hands
+out and :class:`ReplayedDraws` hands them out again, so a run on the card
+can be repeated on the CPU with the same numbers.
+
 :class:`TorchDraws` takes each of these from a generator of its own,
 seeded from the engine generator's seed and a fixed tag, so asking for
 fault or Beta draws never moves the engine's uniforms: a run with no
@@ -142,6 +146,54 @@ class TorchDraws:
         return x / (x + y)
 
 
+class RecordedDraws:
+    """Hands out another source's draws and keeps a CPU copy of each, in
+    call order, with the call's kind (``initial``, ``steps``, ``static``,
+    ``single``, ``fault`` or ``beta``), so that :class:`ReplayedDraws` can
+    hand the same numbers to a run on another device."""
+
+    def __init__(self, inner):
+        self.inner, self.calls, self.kinds = inner, [], []
+
+    def _keep(self, kind: str, t: torch.Tensor) -> torch.Tensor:
+        self.calls.append(t.cpu())
+        self.kinds.append(kind)
+        return t
+
+    def initial(self, *a):
+        return self._keep("initial", self.inner.initial(*a))
+
+    def steps(self, *a):
+        return self._keep("steps", self.inner.steps(*a))
+
+    def static(self, *a):
+        return self._keep("static", self.inner.static(*a))
+
+    def single(self, *a):
+        return self._keep("single", self.inner.single(*a))
+
+    def fault(self, *a):
+        return self._keep("fault", self.inner.fault(*a))
+
+    def beta(self, *a):
+        return self._keep("beta", self.inner.beta(*a))
+
+
+class ReplayedDraws:
+    """Hands out recorded draws (:attr:`RecordedDraws.calls`) in order,
+    whatever the call.  With ``row``, only that row of each: a one-row run
+    replays one row of a batched run's draws."""
+
+    def __init__(self, calls, row: int | None = None):
+        self.calls, self.row = list(calls), row
+
+    def _next(self, *a):
+        t = self.calls.pop(0)
+        return t if self.row is None else t[self.row:self.row + 1]
+
+    initial = steps = static = single = fault = beta = _next
+
+
 def require(draws, protocol):
     """``draws`` if it answers ``protocol``'s calls, else ``TypeError``."""
     if not isinstance(draws, protocol):
@@ -169,5 +221,5 @@ def as_draws(draws, device) -> Draws:
     raise TypeError(f"draws must be a Draws or an int seed, got {type(draws)!r}")
 
 
-__all__ = ["BetaDraws", "Draws", "FaultDraws", "TorchDraws", "as_draws",
-           "require", "torch_draws"]
+__all__ = ["BetaDraws", "Draws", "FaultDraws", "RecordedDraws", "ReplayedDraws",
+           "TorchDraws", "as_draws", "require", "torch_draws"]

@@ -357,46 +357,6 @@ def test_lm_smoke_serving_on_the_card_matches_the_cpu(cuda_device):
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
 
 
-class _Recorded:
-    """Hands out a draws source's numbers, keeping a CPU copy of each in
-    order, fault uniforms included."""
-
-    def __init__(self, inner):
-        self.inner, self.calls = inner, []
-
-    def _keep(self, t):
-        self.calls.append(t.cpu())
-        return t
-
-    def initial(self, *a):
-        return self._keep(self.inner.initial(*a))
-
-    def steps(self, *a):
-        return self._keep(self.inner.steps(*a))
-
-    def static(self, *a):
-        return self._keep(self.inner.static(*a))
-
-    def single(self, *a):
-        return self._keep(self.inner.single(*a))
-
-    def fault(self, *a):
-        return self._keep(self.inner.fault(*a))
-
-    def beta(self, *a):
-        return self._keep(self.inner.beta(*a))
-
-
-class _Replayed:
-    def __init__(self, calls):
-        self.calls = list(calls)
-
-    def _next(self, *a):
-        return self.calls.pop(0)
-
-    initial = steps = static = single = fault = beta = _next
-
-
 def _erasure_args(device, rounds, seeds):
     from repro_torch import faults, sweeps
     from repro_torch.core.lea import pool_load
@@ -421,14 +381,14 @@ def test_fault_sweep_on_the_card_matches_the_replayed_cpu_run(cuda_device):
     flip a round; the DP kernel repeats the plain version's roundings, so
     none is expected), B1 launched once."""
     from repro_torch import faults
-    from repro_torch.random import torch_draws
-    recorder = _Recorded(torch_draws(3, cuda_device))
+    from repro_torch.random import RecordedDraws, ReplayedDraws, torch_draws
+    recorder = RecordedDraws(torch_draws(3, cuda_device))
     args, geometry = _erasure_args(cuda_device, 300, 2)
     before = launch_counts()["success_tails_cuda_w"]
     on_card = faults.sweep_faults(recorder, *args, **geometry, device=cuda_device)
     assert launch_counts()["success_tails_cuda_w"] == before + 1
     cpu_args, _ = _erasure_args("cpu", 300, 2)
-    on_cpu = faults.sweep_faults(_Replayed(recorder.calls), *cpu_args, **geometry,
+    on_cpu = faults.sweep_faults(ReplayedDraws(recorder.calls), *cpu_args, **geometry,
                                  device="cpu")
     for got, want in zip(on_card, on_cpu):
         assert int((got.cpu() != want).any(dim=-1).sum()) <= 300 * 18 // 1000
@@ -495,12 +455,12 @@ def test_thompson_on_the_card_matches_the_replayed_cpu_run(cuda_device):
     without it); replayed on the CPU, the same successes."""
     from repro_torch.core import throughput
     from repro_torch.core.lea import LoadParams
-    from repro_torch.random import torch_draws
+    from repro_torch.random import RecordedDraws, ReplayedDraws, torch_draws
     args = (LoadParams(15, 99, 10, 3), [0.8] * 15, [0.7] * 15, 10.0, 3.0, 1.0, 2000)
-    recorder = _Recorded(torch_draws(5, cuda_device))
+    recorder = RecordedDraws(torch_draws(5, cuda_device))
     got = throughput.simulate_strategies(recorder, *args, ("lea", "thompson", "static"),
                                          device=cuda_device)
-    want = throughput.simulate_strategies(_Replayed(recorder.calls), *args,
+    want = throughput.simulate_strategies(ReplayedDraws(recorder.calls), *args,
                                           ("lea", "thompson", "static"), device="cpu")
     assert int((got.cpu() != want).any(dim=-1).sum()) <= 2
     alone = throughput.simulate_strategies(torch_draws(5, cuda_device), *args,

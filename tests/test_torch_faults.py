@@ -34,7 +34,8 @@ from repro_torch.core import coded_ops, lagrange, markov, throughput
 from repro_torch.core.lea import LoadParams, PoolLoad
 from repro_torch.policies import registry
 from repro_torch.policies.api import PolicyContext
-from repro_torch.random import FaultDraws, as_draws, torch_draws
+from repro_torch.random import (FaultDraws, RecordedDraws, ReplayedDraws, as_draws,
+                                torch_draws)
 from test_torch_engine import JaxDraws, _split_rows, _uniforms
 
 CPU = "cpu"
@@ -53,6 +54,20 @@ def _uniform_shape(shape):
 
 def _as_keys(keys):
     return jnp.asarray(np.array(keys), jnp.uint32).reshape(-1, 2)
+
+
+def jax_fault_uniforms(keys, parts, position, part, shape):
+    """The uniforms ``repro``'s injector at ``position`` of a channel draws
+    for part ``part``, (rows, *shape), from the (rows, 2) channel keys:
+    ``fold_in(key, position)``, split in two where the injector takes two
+    ``parts``; a ``chain`` part is ``sample_trajectory_from``'s per-step
+    draws."""
+    k = _fold(_as_keys(keys), position)
+    if len(parts) == 2:
+        k = _split2(k)[:, parts.index(part)]
+    if part == "chain":
+        return _uniforms(shape[1], 2)(_split_rows(shape[0])(k))
+    return _uniform_shape(tuple(shape))(k)
 
 
 class JaxFaultDraws(JaxDraws):
@@ -80,14 +95,7 @@ class JaxFaultDraws(JaxDraws):
         self.beta_calls = 0
 
     def fault(self, rows, position, part, shape):
-        k = _fold(self.fault_keys, position)
-        parts = self.parts[position]
-        if len(parts) == 2:
-            k = _split2(k)[:, parts.index(part)]
-        if part == "chain":
-            u = _uniforms(shape[1], 2)(_split_rows(shape[0])(k))
-        else:
-            u = _uniform_shape(tuple(shape))(k)
+        u = jax_fault_uniforms(self.fault_keys, self.parts[position], position, part, shape)
         assert u.shape == (rows,) + tuple(shape)
         return self._t(u)
 
@@ -176,39 +184,18 @@ def test_registry_matches_jax_and_rejects_unknown_names():
     assert tr.t_cut[1].eq(2.5).all() and bool(tr.keep.all())
 
 
-class _Recorded:
-    """Hands out a source's fault uniforms and keeps each, in order."""
-
-    def __init__(self, inner):
-        self.inner, self.calls = inner, []
-
-    def fault(self, *args):
-        self.calls.append(self.inner.fault(*args))
-        return self.calls[-1]
-
-
-class _RowReplay:
-    """Replays row ``row`` of recorded fault uniforms, call by call."""
-
-    def __init__(self, calls, row):
-        self.calls, self.row = list(calls), row
-
-    def fault(self, rows, position, part, shape):
-        return self.calls.pop(0)[self.row:self.row + 1]
-
-
 def test_per_row_parameters_ride_their_rows():
     """A (B,) parameter gives row b exactly the faults of a one-row channel
     with that row's value, on the same uniforms."""
     p_pre = torch.tensor([0.0, 0.3, 0.9])
     p_drop = torch.tensor([0.5, 0.0, 0.2])
     spec = lambda a, b: [("preempt", {"p_preempt": a}), ("packet_bernoulli", {"p_drop": b})]
-    draws = _Recorded(torch_draws(5, CPU))
+    draws = RecordedDraws(torch_draws(5, CPU))
     batched = faults.apply_channel(draws, faults.make_channel(spec(p_pre, p_drop)),
                                    faults.base_trace(3, 8, 4, 2, 3, DEADLINE, device=CPU))
     for row in range(3):
         one = faults.apply_channel(
-            _RowReplay(draws.calls, row),
+            ReplayedDraws(draws.calls, row),
             faults.make_channel(spec(float(p_pre[row]), float(p_drop[row]))),
             faults.base_trace(1, 8, 4, 2, 3, DEADLINE, device=CPU))
         assert torch.equal(one.t_cut[0], batched.t_cut[row])
@@ -366,6 +353,56 @@ def test_float_packet_blocks_against_the_reference_outputs():
                                        rtol=1e-5, atol=1e-5)
             np.testing.assert_allclose(out[:, block].numpy(), ref_q[:, block].numpy(),
                                        rtol=1e-5, atol=1e-5)
+
+
+def _route_bound(spec, x, w):
+    """The float32 forward-error bound of the per-packet float route (as
+    ``chip_smoke.py`` phase 11d): each decoded element within
+    gamma_n (|D| @ A[received]) of the exact X_j @ w, A = |G| @ (|X| @ |w|),
+    gamma_n = n u / (1 - n u), u = 2^-24, n = cols + 5 (k + K*)."""
+    n = x.shape[-1] + 5 * (spec.k + spec.recovery_threshold)
+    u = 2.0 ** -24
+    g = lagrange.generator_matrix(spec, torch.float64, device=CPU).numpy()
+    return np.abs(g) @ np.einsum("krc,c->kr", np.abs(x).astype(np.float64),
+                                 np.abs(w).astype(np.float64)), n * u / (1 - n * u)
+
+
+def test_float_packet_decode_on_mixed_node_sets_meets_the_route_bound_as_jax_does():
+    """At ``CodeSpec(15, 10, 5, 2)``, on masks where preempted workers keep a
+    prefix of their chunks and packets drop (received sets that mix
+    workers' nodes), every decodable block of the port's and of ``repro``'s
+    per-packet decode lies within the float32 bound of the route of the
+    exact X_j @ w, and the two differ by at most twice that bound."""
+    spec, jspec = lagrange.CodeSpec(15, 10, 5, 2), jlag.CodeSpec(15, 10, 5, 2)
+    n, r, packets, kstar = 15, 10, 4, spec.recovery_threshold
+    rng = np.random.default_rng(18)
+    x = rng.normal(size=(spec.k, 8, 32)).astype(np.float32)
+    w = rng.normal(size=(32,)).astype(np.float32)
+    want = np.einsum("krc,c->kr", x.astype(np.float64), w.astype(np.float64))
+    mags, gamma = _route_bound(spec, x, w)
+    coded = coded_ops.encode_dataset(spec, torch.from_numpy(x))
+    jcoded = jco.encode_dataset(jspec, jnp.asarray(x))
+    blocks, mixed = 0, 0
+    for _ in range(12):
+        prefix = np.where(rng.random(n) < 0.5, rng.integers(0, r + 1, n), r)
+        kept = (np.arange(r)[None, :] < prefix[:, None]).reshape(n * r)
+        pm = kept[:, None] & (rng.random((n * r, packets)) > 0.1)
+        out, ok = faults.coded_matmul_packets(coded, torch.from_numpy(w), torch.from_numpy(pm))
+        jout, jok = jfaults.coded_matmul_packets(jcoded, jnp.asarray(w), jnp.asarray(pm))
+        np.testing.assert_array_equal(ok.numpy(), np.array(jok))
+        for q in np.nonzero(ok.numpy())[0]:
+            block = slice(2 * q, 2 * q + 2)
+            received = coded_ops.received_indices(torch.from_numpy(pm[:, q]), kstar)
+            workers = set((received.numpy() // r).tolist())
+            mixed += len(workers) > 1 and any(prefix[i] < r for i in workers)
+            d = lagrange.decode_matrix_jax(spec, received).double().abs().numpy()
+            bound = gamma * (d @ mags[received.numpy()][:, block])
+            got, ref = out[:, block].numpy(), np.array(jout)[:, block]
+            assert (np.abs(got - want[:, block]) <= bound).all()
+            assert (np.abs(ref - want[:, block]) <= bound).all()
+            assert (np.abs(got.astype(np.float64) - ref) <= 2 * bound).all()
+            blocks += 1
+    assert blocks >= 24 and mixed >= 12
 
 
 def test_rows_must_divide_into_packets():

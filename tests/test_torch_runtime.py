@@ -28,9 +28,9 @@ from repro_torch.examples import quickstart
 from repro_torch.runtime import elastic
 from repro_torch.runtime import fault_tolerance as ft
 from test_torch_engine import JaxDraws
+from test_torch_faults import jax_fault_uniforms
 
 CPU = "cpu"
-_fold = jax.jit(jax.random.fold_in)
 
 
 class ExecutorJaxDraws:
@@ -66,11 +66,8 @@ class ExecutorJaxDraws:
     def fault(self, rows, position, part, shape):
         if self._fault_key is None:          # the attempt's channel key
             self._fault_key = self._next()
-        k = _fold(self._fault_key, position)
-        parts = self.parts[position]
-        if len(parts) == 2:
-            k = jax.random.split(k)[parts.index(part)]
-        return self._t(jax.random.uniform(k, shape))[None]
+        return self._t(jax_fault_uniforms(self._fault_key[None], self.parts[position],
+                                          position, part, shape))
 
 
 def _jgrad(params, shard):
