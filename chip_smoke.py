@@ -16,7 +16,10 @@ Phases, one line each (any failure raises and exits non-zero):
      n = 15, 64 and 100, and at the fault path's shapes (phase 11): the
      grid's probabilities (1, 72, 20 000, 15) with thresholds (1, 72, 1, 15),
      the executor's plan on one 8-worker row (1, 8) and on one 15-worker row
-     (1, 15); each with its time, the plain version's time and the
+     (1, 15), and at the serving path's shapes (phase 12): the admission
+     gate's (1, 96, 2 000, 15) with thresholds (1, 96, 1, 15) (a stride-0
+     view over the rounds) and a round's allocation, (96 x 6, 15) with
+     per-row thresholds; each with its time, the plain version's time and the
      card's bound for the same work (distinct threshold rows counted once).
      Every time here and in phases 6 and 9 is taken twice, the
      same way for kernel, plain version and library call (``time_ms``): a
@@ -120,7 +123,25 @@ Phases, one line each (any failure raises and exits non-zero):
      forward-error bound of the route of the uncoded X_j @ w (see
      ``faults_float_packets``), its relative error logged; (e) the retry/degrade executor
      under ``preempt`` at 0.35 (packets 4, 2 retries, partial serving) for
-     30 rounds: the outcomes sum to 30 and B2 launches.
+     30 rounds: the outcomes sum to 30 and B2 launches;
+ 12. the streaming serving layer (``repro_torch.serving``) at the paper's
+     pool (n = 15, K* = 50, loads (10, 3), p_gg 0.8, p_bb 0.7, mu (10, 3),
+     d = 1): (a) ``sweeps.expand("arrival_grid", rounds=512)`` with 16 seeds
+     a cell (96 rows), admit-all and controlled on the same generator
+     seeds: every row conserves its requests, B1 launches rounds + 1 times a
+     call, each cell's controlled on-time rate within 4.5 across-seed sd of
+     ``BENCH_serving.json``, and over the overloaded cells (rate above its
+     ``sustainable_rate``) controlled serves strictly more on time than
+     admit-all; (b) the same grid at the family's 2 000 rounds, controlled,
+     a first and a warmed call timed (row-rounds/s, ms a round, peak
+     memory, B1 launches = rounds + 1), the round loop run under
+     ``torch.cuda.set_sync_debug_mode("error")`` (any sync in it raises),
+     and a 250-round call under ``torch.profiler`` (launches a round, idle
+     share); (c) 4 rows on the card and on the CPU from the same recorded
+     draws: every ``ServingOutcomes`` field equal; (d) the serving CLI
+     (``repro_torch.launch.serve``) at its defaults (shift_exp, 1 000
+     rounds) and ``repro_torch.examples.serve_coded.run()`` (B3's exact
+     encode and decodes) on the card, accounting asserted.
 
 It then prints the kernels' JSON record, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  It writes no file.
@@ -312,6 +333,11 @@ def check_kernels(kernel_mod, ref) -> dict:
         ("success_tails_cuda_w", "engine", (1, 72, 20_000), 15, False),
         ("success_tails_cuda", "static", (1,), 8, False),
         ("success_tails_cuda", "static", (1,), 15, False),
+        # the serving path (phase 12): the admission gate over the 96-row
+        # arrival grid, thresholds (1, 96, 1, 15) read as a stride-0 view over
+        # the 2 000 rounds; a round's allocation, (96 rows x 6 slots, 15)
+        ("success_tails_cuda_w", "engine", (1, 96, 2_000), 15, False),
+        ("success_tails_cuda_w", "per-row", (96 * 6,), 15, False),
     ]
     record = {}
     for name, layout, lead, n, main_shape in cases:
@@ -1424,6 +1450,235 @@ def faults_path() -> dict[str, int]:
     return launches
 
 
+SERVING_SEEDS = 16
+
+
+def serving_grid(scenarios, seeds: int, device: str, controlled: bool):
+    """``sweep_serving``'s arguments for an ``arrival_grid`` grid, ``seeds``
+    rows a cell (cell-major), as ``benchmarks/bench_serving.py`` builds them:
+    the committed admission settings (controlled) or both gates off
+    (admit-all)."""
+    from repro_torch import serving
+
+    lp, meta = scenarios[0].lp, [dict(sc.meta) for sc in scenarios]
+    rows = len(scenarios) * seeds
+    col = lambda key, dtype: torch.tensor([m[key] for m in meta for _ in range(seeds)],
+                                          dtype=dtype, device=device)
+    chain = lambda attr: torch.tensor([getattr(sc, attr) for sc in scenarios
+                                       for _ in range(seeds)], dtype=torch.float32,
+                                      device=device)
+    if controlled:
+        thr, cap = col("admit_threshold", torch.float32), col("reserve_cap", torch.float32)
+    else:
+        thr = torch.zeros(rows, device=device)
+        cap = torch.full((rows,), serving.ADMIT_ALL_CAP, device=device)
+    spec = serving.RequestSpec(kstar=lp.kstar, ell_g=lp.ell_g, ell_b=lp.ell_b,
+                               deadline_rel=col("deadline_rel", torch.int32),
+                               admit_threshold=thr, reserve_cap=cap)
+    sc = scenarios[0]
+    args = (torch.ones((rows, lp.n), dtype=torch.bool, device=device), chain("p_gg"),
+            chain("p_bb"), sc.mu_g, sc.mu_b, sc.deadline, spec,
+            serving.make_process("poisson", rate=col("rate", torch.float32)))
+    kwargs = dict(rounds=sc.rounds, strategies=("lea",), capacity=meta[0]["capacity"],
+                  grace=meta[0]["grace"], device=device)
+    return args, kwargs
+
+
+def conserved(out) -> bool:
+    """Every row's requests in exactly one disposition."""
+    return bool((out.arrivals == out.admitted + out.rejected).all()
+                and (out.admitted == out.served_on_time + out.served_late + out.expired
+                     + out.in_flight).all())
+
+
+def serving_bench() -> None:
+    """Phase 12a: the arrival_grid at the committed 512 rounds, 16 seeds a
+    cell, admit-all and controlled on the same generator seeds, held to
+    ``BENCH_serving.json``."""
+    from repro_torch import serving, sweeps
+    from repro_torch.kernels import poisson_binomial as pb
+    from repro_torch.random import torch_draws
+
+    scenarios = sweeps.expand("arrival_grid", rounds=512)
+    rounds, seeds = scenarios[0].rounds, SERVING_SEEDS
+    outs, walls, launches = {}, {}, {}
+    for mode in ("admit_all", "controlled"):
+        args, kwargs = serving_grid(scenarios, seeds, "cuda", mode == "controlled")
+        reset_all_launch_counts()
+        outs[mode], walls[mode] = timed(lambda: serving.sweep_serving(torch_draws(21), *args,
+                                                                      **kwargs))
+        launches[mode] = pb.launch_counts()["success_tails_cuda_w"]
+        if launches[mode] != rounds + 1:
+            raise AssertionError(f"{mode}: B1 launched {launches[mode]} times, not "
+                                 f"rounds + 1 = {rounds + 1}")
+        if not conserved(outs[mode]):
+            raise AssertionError(f"{mode}: a row does not conserve its requests")
+    bench = json.loads((ROOT / "BENCH_serving.json").read_text())
+    cells = {c["name"]: c for c in bench["results"]}
+    served = {m: o.served_on_time[:, 0].cpu().numpy() for m, o in outs.items()}
+    ctl = outs["controlled"]
+    for i, sc in enumerate(scenarios):
+        rows = slice(i * seeds, (i + 1) * seeds)
+        per_seed = served["controlled"][rows] / rounds
+        mean, sd = float(per_seed.mean()), float(per_seed.std(ddof=1))
+        want = cells[sc.name]["served_per_round"]
+        z = abs(mean - want) / sd if sd > 0 else (0.0 if mean == want else float("inf"))
+        if not z <= 4.5:
+            raise AssertionError(f"{sc.name}: controlled on-time rate {mean} vs "
+                                 f"BENCH_serving {want} (sd {sd})")
+        ev = ctl.events[rows, 0].cpu().numpy()
+        lat = ctl.sojourn[rows, 0].cpu().numpy()[(ev == serving.EVENT_ON_TIME)
+                                                | (ev == serving.EVENT_LATE)]
+        pct = np.percentile(lat, [50, 95, 99]) if lat.size else [float("nan")] * 3
+        log("serving_cell", cell=sc.name, rate_ctl=f"{mean:.4f}", sd=f"{sd:.4f}",
+            bench=want, z=f"{z:.2f}",
+            rate_admit_all=f"{served['admit_all'][rows].mean() / rounds:.4f}",
+            arrivals=f"{ctl.arrivals[rows, 0].float().mean().item():.1f}",
+            rejected_ctl=f"{ctl.rejected[rows, 0].float().mean().item():.1f}",
+            expired_ctl=f"{ctl.expired[rows, 0].float().mean().item():.1f}",
+            expired_admit_all=f"{outs['admit_all'].expired[rows, 0].float().mean().item():.1f}",
+            latency_p50_p95_p99=json.dumps([float(v) for v in pct]))
+    rates = np.repeat([dict(sc.meta)["rate"] for sc in scenarios], seeds)
+    over = rates > bench["sustainable_rate"]
+    gain = int(served["controlled"][over].sum()) - int(served["admit_all"][over].sum())
+    if not gain > 0:
+        raise AssertionError(f"admission control does not beat admit-all at overload: {gain}")
+    log("serving_grid", rows=len(scenarios) * seeds, rounds=rounds,
+        wall_admit_all_s=f"{walls['admit_all']:.3f}",
+        wall_controlled_s=f"{walls['controlled']:.3f}",
+        b1_launches=json.dumps(launches), admission_gain_requests=gain,
+        overloaded_rows=int(over.sum()), conservation=True,
+        gpu=json.dumps(nvidia_smi_line()))
+
+
+def strict_round_loop():
+    """Wrap the serving engine's round loop so any sync inside it raises
+    (``torch.cuda.set_sync_debug_mode("error")``); returns the undo."""
+    from repro_torch.serving import engine
+
+    loop = engine._round_loop
+
+    def strict(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return loop(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    engine._round_loop = strict
+    return lambda: setattr(engine, "_round_loop", loop)
+
+
+def serving_stream() -> int:
+    """Phase 12b: the same grid at the family's own 2 000 rounds (controlled),
+    a first and a warmed call timed, the round loop under the sync check;
+    returns B1's launches in one call."""
+    from repro_torch import serving, sweeps
+    from repro_torch.kernels import poisson_binomial as pb
+    from repro_torch.random import torch_draws
+
+    scenarios = sweeps.expand("arrival_grid")
+    rounds = scenarios[0].rounds
+    args, kwargs = serving_grid(scenarios, SERVING_SEEDS, "cuda", True)
+    rows = len(scenarios) * SERVING_SEEDS
+    undo = strict_round_loop()
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launch_counts()
+        first, wall = timed(lambda: serving.sweep_serving(torch_draws(22), *args, **kwargs))
+        launches = pb.launch_counts()["success_tails_cuda_w"]
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        _, wall_warm = timed(lambda: serving.sweep_serving(torch_draws(22), *args, **kwargs))
+    finally:
+        undo()
+    if launches != rounds + 1:
+        raise AssertionError(f"B1 launched {launches} times in a call, not rounds + 1 = "
+                             f"{rounds + 1}")
+    if not conserved(first):
+        raise AssertionError("a row does not conserve its requests")
+    window = 250
+    win_args, win_kwargs = serving_grid(sweeps.expand("arrival_grid", rounds=window),
+                                        SERVING_SEEDS, "cuda", True)
+    profile = profile_window(lambda: serving.sweep_serving(torch_draws(22), *win_args,
+                                                           **win_kwargs))
+    log("serving_stream", rows=rows, rounds=rounds, wall_s=f"{wall:.3f}",
+        row_rounds_per_s=f"{rows * rounds / wall:.0f}", wall_warm_s=f"{wall_warm:.3f}",
+        row_rounds_per_s_warm=f"{rows * rounds / wall_warm:.0f}",
+        ms_per_round_warm=f"{wall_warm / rounds * 1e3:.4f}",
+        peak_memory_gib=f"{peak_gib:.3f}", b1_launches=launches,
+        sync_in_round_loop="none (set_sync_debug_mode error)",
+        served_on_time=int(first.served_on_time.sum()), arrivals=int(first.arrivals.sum()),
+        gpu=json.dumps(nvidia_smi_line()))
+    log("serving_profile", part=f"grid_{window}_rounds", rounds=window,
+        launches_per_round=f"{profile['kernel_launches'] / window:.1f}", **profile)
+    return launches
+
+
+def serving_agree() -> None:
+    """Phase 12c: 4 rows of the controlled grid on the card and on the CPU
+    from the same recorded draws: events, sojourns and counters equal."""
+    from repro_torch import serving, sweeps
+    from repro_torch.random import RecordedDraws, ReplayedDraws, torch_draws
+
+    scenarios = sweeps.expand("arrival_grid", rounds=512)[2:]     # rates 1.2 and 2.4
+    recorder = RecordedDraws(torch_draws(23))
+    args, kwargs = serving_grid(scenarios, 1, "cuda", True)
+    on_card, wall_card = timed(lambda: serving.sweep_serving(recorder, *args, **kwargs))
+    cpu_args, cpu_kwargs = serving_grid(scenarios, 1, "cpu", True)
+    t0 = time.perf_counter()
+    on_cpu = serving.sweep_serving(ReplayedDraws(recorder.calls), *cpu_args, **cpu_kwargs)
+    wall_cpu = time.perf_counter() - t0
+    differ = {f: int((getattr(on_card, f).cpu() != getattr(on_cpu, f)).sum())
+              for f in serving.ServingOutcomes._fields}
+    if any(differ.values()):
+        raise AssertionError(f"card and CPU differ: {differ}")
+    log("serving_agree", rows=on_cpu.arrivals.shape[0], rounds=kwargs["rounds"],
+        draw_calls=json.dumps(recorder.kinds), differing=json.dumps(differ),
+        wall_card_s=f"{wall_card:.3f}", wall_cpu_s=f"{wall_cpu:.3f}")
+
+
+def serving_entry_points() -> dict[str, int]:
+    """Phase 12d: the serving CLI at its defaults and the serve_coded
+    example on the card; returns the coding kernels' launches."""
+    from repro_torch.examples import serve_coded
+    from repro_torch.launch import serve
+
+    reset_all_launch_counts()
+    summary, wall = timed(lambda: serve.main([], echo=lambda line: None))
+    for name, row in summary.items():
+        if row["arrivals"] != row["admitted"] + row["rejected"] or row["admitted"] != (
+                row["served_on_time"] + row["served_late"] + row["expired"]
+                + row["in_flight"]):
+            raise AssertionError(f"serve CLI {name}: accounting fails: {row}")
+    log("serving_cli", wall_s=f"{wall:.3f}", rounds=1000, summary=json.dumps(summary))
+    counts, wall = timed(lambda: serve_coded.run(echo=lambda line: None))
+    if counts["checked"] < 1 or counts["arrivals"] != counts["admitted"] + counts["rejected"]:
+        raise AssertionError(f"serve_coded: {counts}")
+    from repro_torch.kernels import poisson_binomial as pb
+    launches = {**pb.launch_counts(), **coding_launches()}
+    if launches["matmul_gf_cuda"] < 1:
+        raise AssertionError(f"serve_coded never launched B3: {launches}")
+    log("serving_example", wall_s=f"{wall:.3f}", counts=json.dumps(counts),
+        launches=json.dumps(launches))
+    return {k: v for k, v in launches.items() if v}
+
+
+def serving_path() -> dict[str, int]:
+    """Phase 12: the streaming serving layer at the paper's pool.  The
+    counts are set to 0 before each part's own work; returns the launches
+    of one 2 000-round grid call (B1) and of the entry points."""
+    t0 = time.perf_counter()
+    serving_bench()
+    launches = {"success_tails_cuda_w": serving_stream()}
+    serving_agree()
+    for name, count in serving_entry_points().items():
+        launches[name] = launches.get(name, 0) + count
+    log("serving_path", launches=json.dumps(launches),
+        wall_s=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1552,6 +1807,9 @@ def main() -> int:
     # -- phase 11: the fault-injection runtime ------------------------------------
     launches_faults = faults_path()
 
+    # -- phase 12: the streaming serving layer -------------------------------------
+    launches_serving = serving_path()
+
     kernels = []
     launches = {"success_tails_cuda_w": launches_main["success_tails_cuda_w"],
                 "success_tails_cuda": launches_static["success_tails_cuda"],
@@ -1559,7 +1817,7 @@ def main() -> int:
     by_path = {"fig3": {"success_tails_cuda_w": launches_main["success_tails_cuda_w"]},
                "compare": {"success_tails_cuda": launches_static["success_tails_cuda"]},
                "coded": launches_coded, "serve": {"flash_attention_cuda": launches_lm},
-               "faults": launches_faults}
+               "faults": launches_faults, "serving": launches_serving}
     for name, (source, replaces) in KERNELS.items():
         entry = record[name]
         kernels.append({

@@ -261,6 +261,89 @@ def allocate_masked(
     return loads, i_star, torch.broadcast_to(feasible, i_star.shape)
 
 
+def allocate_queue(
+    p_good: torch.Tensor,
+    pool_mask: torch.Tensor,
+    active: torch.Tensor,
+    kstar: torch.Tensor,
+    ell_g: torch.Tensor,
+    ell_b: torch.Tensor,
+    order: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Split ONE worker pool across the active slots of a request queue.
+
+    The multi-job extension of :func:`allocate_masked` (the serving layer):
+    greedy EDF water-filling over the pool's descending-p_good ranks.  Each
+    active slot j has its own (kstar, ell_g, ell_b); ``order`` lists the
+    slots in priority (EDF) order.  Walking slots in that order, slot j is
+    handed a contiguous SEGMENT of the rank-sorted pool: at least its
+    minimal feasible worker count ``m_j = ceil(kstar_j / ell_g_j)``, plus
+    every worker not reserved by the minimal demands of the lower-priority
+    slots behind it — so the most urgent slot absorbs all surplus
+    redundancy and each segment then gets its own :func:`allocate_masked`
+    two-level assignment, ONE batched DP over every segment (one launch of
+    the Poisson-binomial kernel on the card).
+
+    Batched over leading axes: ``p_good`` (..., n) predicted good
+    probabilities (raw, not demoted), ``pool_mask`` (..., n) bool (True = real
+    worker), ``active`` (..., Q) bool, ``kstar``/``ell_g``/``ell_b`` (..., Q)
+    integer per-slot parameters and ``order`` (..., Q) a permutation of the
+    slots, highest priority first (inactive slots may appear anywhere; they
+    demand and receive nothing).  The loop over the Q slots is a fixed loop
+    of integer tensor ops: exact, and nothing is read back to the host.
+
+    Returns ``(loads, i_star, feasible)``, all in ORIGINAL slot order:
+
+      * ``loads`` (..., Q, n) int32 — per-slot worker assignment; segments
+        are disjoint, zero outside a slot's segment and for inactive slots;
+      * ``i_star`` (..., Q) — each segment's argmax prefix (1-based);
+      * ``feasible`` (..., Q) bool — False where a slot's segment cannot
+        reach its kstar (the pool is oversubscribed and the shortfall is
+        EXPLICIT, never silent).  Inactive slots read False.
+
+    With ONE active slot the segment is the entire valid pool, so the
+    result equals :func:`allocate_masked` on the full pool to the bit — the
+    case that reduces the serving engine to the single-job engine.
+    """
+    q = active.shape[-1]
+    # worker ranks over the FULL pool, exactly allocate_masked's demotion
+    _, ranks = _ranks_descending(torch.where(pool_mask, p_good, -1.0))
+    n_valid = pool_mask.to(torch.int32).sum(dim=-1)
+
+    # per-slot quantities in priority order
+    take = lambda x: torch.gather(x, -1, order)
+    act_e = take(active)
+    ks_e, eg_e, eb_e = (take(x).to(torch.int32) for x in (kstar, ell_g, ell_b))
+    m_e = torch.where(act_e, -torch.div(-ks_e, eg_e.clamp(min=1), rounding_mode="floor"), 0)
+    # minimal demand of the slots BEHIND priority position j
+    reserve_after = torch.flip(torch.cumsum(torch.flip(m_e, (-1,)), -1), (-1,)) - m_e
+
+    sizes = []
+    remaining = torch.broadcast_to(n_valid, act_e.shape[:-1])
+    for j in range(q):
+        want = torch.maximum(m_e[..., j], remaining - reserve_after[..., j])
+        size = torch.where(act_e[..., j], torch.minimum(want.clamp(min=0), remaining), 0)
+        sizes.append(size)
+        remaining = remaining - size
+    sizes_e = torch.stack(sizes, dim=-1).to(torch.int32)                  # (..., Q)
+    starts_e = torch.cumsum(sizes_e, dim=-1, dtype=torch.int32) - sizes_e
+
+    r = ranks[..., None, :]
+    seg = ((r >= starts_e[..., None]) & (r < (starts_e + sizes_e)[..., None])
+           & pool_mask[..., None, :] & act_e[..., None])                   # (..., Q, n)
+    # a free slot's stale ell_g may be 0: its segment is empty, so every
+    # output of it is the same for any ell_g, and 1 keeps the DP's
+    # threshold division defined
+    loads_e, i_star_e, feas_e = allocate_masked(
+        p_good[..., None, :].expand(seg.shape),
+        PoolLoad(kstar=ks_e, ell_g=torch.where(act_e, eg_e, 1), ell_b=eb_e, mask=seg),
+    )
+    inv = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(q, device=order.device).expand_as(order))  # unpermute
+    return (torch.gather(loads_e, -2, inv[..., None].expand(loads_e.shape)),
+            torch.gather(i_star_e, -1, inv), torch.gather(feas_e, -1, inv))
+
+
 def success_prob_bruteforce(p_good_sorted, lp: LoadParams, i_tilde: int) -> float:
     """Reference implementation of eq. (8) by exponential enumeration (tests)."""
     p = np.asarray(torch.as_tensor(p_good_sorted).cpu(), np.float64)[:i_tilde]

@@ -115,11 +115,11 @@ def _p_good_rows(states, p_gg, p_bb, pi_g, alloc_names, draws=None) -> torch.Ten
                         for s in alloc_names])
 
 
-def engine_preamble(draws, load, p_gg, p_bb, rounds: int, strategies):
+def engine_preamble(draws, mask, p_gg, p_bb, rounds: int, strategies):
     """The per-run preamble: ``(states (B, M, n), p_alloc (A, B, M, n),
-    pi_g (B, n))``.  ``p_alloc`` has a zero-size leading axis when no
-    allocator strategy is requested."""
-    mask = load.mask if isinstance(load, PoolLoad) else None
+    pi_g (B, n))`` for a (B, n) worker ``mask`` (``None``: every worker
+    real).  ``p_alloc`` has a zero-size leading axis when no allocator
+    strategy is requested."""
     states = markov.sample_trajectory(draws, p_gg, p_bb, rounds, worker_mask=mask)
     pi_g = markov.stationary_good_prob(markov.chain_row0(p_gg),
                                        markov.chain_row0(p_bb))
@@ -250,8 +250,8 @@ def _simulate_batched(draws, load, p_gg, p_bb, mu_g, mu_b, deadline, rounds,
     strategies = tuple(strategies)
     _check_strategies(strategies)
     _check_chain_shapes(p_gg, p_bb, rounds)
-    states, p_alloc, pi_g = engine_preamble(draws, load, p_gg, p_bb, rounds,
-                                            strategies)
+    states, p_alloc, pi_g = engine_preamble(draws, _load_fields(load)[3], p_gg, p_bb,
+                                            rounds, strategies)
     if round_chunk is None or round_chunk >= rounds:
         return engine_block(states, draws, rounds, 0, p_alloc, pi_g, load,
                             strategies, mu_g, mu_b, deadline)
@@ -362,8 +362,8 @@ def _rollout(draws, load, p_gg, p_bb, rounds, strategies, dev):
     if isinstance(load, PoolLoad):
         load = _batch_pool(load, 1, dev)
     draws = as_draws(draws, dev)
-    states, p_alloc, pi_g = engine_preamble(draws, load, p_gg, p_bb, rounds,
-                                            strategies)
+    states, p_alloc, pi_g = engine_preamble(draws, _load_fields(load)[3], p_gg, p_bb,
+                                            rounds, strategies)
     loads_mat, feasible = _rollout_block(
         states, draws, rounds, 0, p_alloc, pi_g, load, strategies
     )
@@ -384,6 +384,40 @@ def rollout_pool(draws, pool: PoolLoad, p_gg, p_bb, rounds: int,
     """:func:`rollout` with a :class:`PoolLoad` (scalars + (n,) mask)."""
     return _rollout(draws, pool, p_gg, p_bb, rounds, strategies,
                     resolve_device(device))
+
+
+def serve_rollout(draws, mask, p_gg, p_bb, rounds: int, strategies=("lea",), *,
+                  device=None):
+    """Trajectory + per-policy predicted p_good rows for the serving layer.
+
+    The serving layer allocates per QUEUE SLOT (its own K*/ell per
+    request), so unlike :func:`rollout_pool` there is no single pool-wide
+    load allocation to return — just the engine preamble: ``(states (B, M,
+    n), p_alloc (S, B, M, n))`` for ``mask``, ``p_gg``, ``p_bb`` of (B, n),
+    drawn exactly as :func:`simulate_strategies_pool` draws them (same
+    masked trajectory, same policy replays), so a degenerate
+    one-job-per-round serving run replays the offline engine bit for bit.
+
+    ``strategies`` must be registered POLICY names, unique: the serving
+    loop allocates from predictions every round, so the static draw
+    strategies (which never produce a p_good trajectory) are rejected
+    explicitly rather than silently served a default.
+    """
+    strategies = tuple(strategies)
+    _check_strategies(strategies)
+    if strategies != allocator_strategies(strategies):
+        raise ValueError(
+            f"serve_rollout strategies must be unique policy names (no "
+            f"static draws {STATIC_STRATEGIES}): got {strategies!r}"
+        )
+    dev = resolve_device(device)
+    p_gg, p_bb = _f32(p_gg, dev), _f32(p_bb, dev)
+    _check_chain_shapes(p_gg, p_bb, rounds)
+    mask = torch.broadcast_to(torch.as_tensor(mask, dtype=torch.bool, device=dev),
+                              (p_gg.shape[0], p_gg.shape[-1]))
+    states, p_alloc, _ = engine_preamble(as_draws(draws, dev), mask, p_gg, p_bb, rounds,
+                                         strategies)
+    return states, p_alloc
 
 
 def score_rollout(states, loads, feasible, lp: LoadParams, mu_g, mu_b,

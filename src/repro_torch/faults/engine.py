@@ -68,7 +68,7 @@ def _faults_batched(draws, pool: PoolLoad, p_gg, p_bb, mu_g, mu_b, deadline,
     throughput._check_chain_shapes(p_gg, p_bb, rounds)
     b, n = p_gg.shape[0], p_gg.shape[-1]
     states, p_alloc, pi_g = throughput.engine_preamble(
-        draws, pool, p_gg, p_bb, rounds, strategies)
+        draws, pool.mask, p_gg, p_bb, rounds, strategies)
     loads, feasible = throughput._rollout_block(
         states, draws, rounds, 0, p_alloc, pi_g, pool, strategies
     )                                          # (S, B, M, n), (S, B, M)

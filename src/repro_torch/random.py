@@ -34,7 +34,15 @@ passes :func:`as_draws`:
     uniforms, ``hit`` / ``frac`` (rounds, n), ``drop`` (rounds, n, r,
     packets) and ``event`` (rounds,) (:mod:`repro_torch.faults.channels`);
   * :class:`BetaDraws` — ``beta(a, b)``, one Beta(a, b) variate per element
-    of the float32 tensors ``a`` and ``b`` (``thompson``'s posterior draws).
+    of the float32 tensors ``a`` and ``b`` (``thompson``'s posterior draws);
+  * :class:`ArrivalDraws` — the serving layer's request arrivals
+    (:mod:`repro_torch.serving.arrivals`).  Poisson and exponential
+    samplers do not consume a fixed number of uniforms, so this protocol
+    hands out *variates*: ``poisson(rate)`` one int32 Poisson count per
+    element of a float32 ``rate`` tensor, ``exponential(rows, count)``
+    (rows, count) float32 Exp(1) variates, and ``chain(rows, rounds)`` the
+    (rows, rounds - 1, 1) transition uniforms of the ``mmpp`` calm/burst
+    chain.
 
 :class:`RecordedDraws` keeps a copy of every draw another source hands
 out and :class:`ReplayedDraws` hands them out again, so a run on the card
@@ -42,9 +50,10 @@ can be repeated on the CPU with the same numbers.
 
 :class:`TorchDraws` takes each of these from a generator of its own,
 seeded from the engine generator's seed and a fixed tag, so asking for
-fault or Beta draws never moves the engine's uniforms: a run with no
-channel (or an empty one) and no randomised policy draws exactly what
-:func:`~repro_torch.core.throughput.simulate_strategies_pool` draws.
+fault, Beta or arrival draws never moves the engine's uniforms: a run
+with no channel (or an empty one) and no randomised policy draws exactly
+what :func:`~repro_torch.core.throughput.simulate_strategies_pool` draws,
+whatever its arrivals.
 
 Stream note: :class:`TorchDraws` hands out its generator's numbers in call
 order, so a chunked run (``round_chunk``) draws the static resampler's
@@ -92,18 +101,30 @@ class BetaDraws(Protocol):
     def beta(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor: ...
 
 
+@runtime_checkable
+class ArrivalDraws(Protocol):
+    """A source of the arrival processes' variates (module docstring)."""
+
+    def poisson(self, rate: torch.Tensor) -> torch.Tensor: ...
+
+    def exponential(self, rows: int, count: int) -> torch.Tensor: ...
+
+    def chain(self, rows: int, rounds: int) -> torch.Tensor: ...
+
+
 # tags of the derived generators (the JAX package's fold_in tags of the
-# fault and policy streams)
+# fault, policy and arrival streams)
 FAULT_TAG = 0x7F4A7C15 % (2**31)
 POLICY_TAG = 0x9E3779B9 % (2**31)
+ARRIVAL_TAG = 0x5BD1E995 % (2**31)
 
 
 class TorchDraws:
     """The default source of every draw: ``torch.Generator`` s on the device.
 
-    Engine uniforms come from ``generator``; fault uniforms and Beta
-    variates from generators of their own, made on first use and seeded
-    with the engine generator's initial seed plus a tag.
+    Engine uniforms come from ``generator``; fault uniforms, Beta variates
+    and arrival variates from generators of their own, made on first use
+    and seeded with the engine generator's initial seed plus a tag.
     """
 
     def __init__(self, generator: torch.Generator):
@@ -145,11 +166,24 @@ class TorchDraws:
         y = torch._standard_gamma(b.to(self.device, torch.float32), generator=gen)
         return x / (x + y)
 
+    def poisson(self, rate):
+        rate = rate.to(self.device, torch.float32)
+        return torch.poisson(rate, generator=self._stream(ARRIVAL_TAG)).to(torch.int32)
+
+    def exponential(self, rows, count):
+        out = torch.empty((rows, count), dtype=torch.float32, device=self.device)
+        return out.exponential_(generator=self._stream(ARRIVAL_TAG))
+
+    def chain(self, rows, rounds):
+        return torch.rand((rows, max(rounds - 1, 0), 1), generator=self._stream(ARRIVAL_TAG),
+                          device=self.device, dtype=torch.float32)
+
 
 class RecordedDraws:
     """Hands out another source's draws and keeps a CPU copy of each, in
     call order, with the call's kind (``initial``, ``steps``, ``static``,
-    ``single``, ``fault`` or ``beta``), so that :class:`ReplayedDraws` can
+    ``single``, ``fault``, ``beta``, ``poisson``, ``exponential`` or
+    ``chain``), so that :class:`ReplayedDraws` can
     hand the same numbers to a run on another device."""
 
     def __init__(self, inner):
@@ -178,6 +212,15 @@ class RecordedDraws:
     def beta(self, *a):
         return self._keep("beta", self.inner.beta(*a))
 
+    def poisson(self, *a):
+        return self._keep("poisson", self.inner.poisson(*a))
+
+    def exponential(self, *a):
+        return self._keep("exponential", self.inner.exponential(*a))
+
+    def chain(self, *a):
+        return self._keep("chain", self.inner.chain(*a))
+
 
 class ReplayedDraws:
     """Hands out recorded draws (:attr:`RecordedDraws.calls`) in order,
@@ -192,6 +235,7 @@ class ReplayedDraws:
         return t if self.row is None else t[self.row:self.row + 1]
 
     initial = steps = static = single = fault = beta = _next
+    poisson = exponential = chain = _next
 
 
 def require(draws, protocol):
@@ -221,5 +265,6 @@ def as_draws(draws, device) -> Draws:
     raise TypeError(f"draws must be a Draws or an int seed, got {type(draws)!r}")
 
 
-__all__ = ["BetaDraws", "Draws", "FaultDraws", "RecordedDraws", "ReplayedDraws",
-           "TorchDraws", "as_draws", "require", "torch_draws"]
+__all__ = ["ARRIVAL_TAG", "ArrivalDraws", "BetaDraws", "Draws", "FaultDraws",
+           "RecordedDraws", "ReplayedDraws", "TorchDraws", "as_draws", "require",
+           "torch_draws"]

@@ -27,6 +27,9 @@ Computing* (arXiv:2206.09399)):
   * ``packet_erasure``  — preemption x packet-loss grid on the Fig. 3 pool,
                           its channel and packet geometry in ``meta``
                           (scored by :mod:`repro_torch.faults`)
+  * ``arrival_grid``    — Poisson arrival rate x request deadline on the
+                          Sec. 6.2 pool, its queue and admission settings
+                          in ``meta`` (served by :mod:`repro_torch.serving`)
 
 Non-stationary families (the ``repro_torch.policies`` proving grounds — chains
 whose parameters move, where windowed/discounted estimators beat vanilla
@@ -467,6 +470,52 @@ def packet_erasure(
                 meta=(("p_preempt", p_pre), ("p_drop", p_drop),
                       ("packets", packets), ("p1", p1), ("k1", k1),
                       ("k1star", k1star), ("r", SIM.r)),
+            ))
+    return tuple(scenarios)
+
+
+@register("arrival_grid")
+def arrival_grid(
+    rates: tuple[float, ...] = (0.6, 1.2, 2.4),
+    deadline_rels: tuple[int, ...] = (1, 3),
+    k: int = 50,
+    deg_f: int = 1,
+    capacity: int = 6,
+    admit_threshold: float = 0.5,
+    reserve_cap: float = 0.7,
+    rounds: int = 2_000,
+) -> tuple[Scenario, ...]:
+    """Serving grid for ``repro.serving``: arrival rate x request deadline.
+
+    The port runs it through :mod:`repro_torch.serving`.
+
+    Poisson requests (``rate`` per round) on the Sec. 6.2 worker pool
+    (K*=50 at deg f=1, so each request's minimal segment is 5 workers —
+    2-3 concurrent jobs saturate the 15-worker pool, and the top rate is a
+    genuine overload).  Each cell's arrival process, request lifetime
+    ``deadline_rel``, queue ``capacity`` and admission-control settings
+    (``admit_threshold``/``reserve_cap`` — the settings the controlled run
+    uses; admit-all is the same call with the gates disabled) ride in
+    ``meta``: a caller turns the meta columns into per-row
+    :class:`~repro_torch.serving.queue.RequestSpec` / arrival-process
+    parameters and runs the whole grid — admit-all and controlled variants
+    on the same draws — through :func:`repro_torch.serving.sweep_serving`,
+    one call each.  Run offline (``sweeps.run``) the scenarios measure the
+    pool's single-job ceiling on the same chain.
+    """
+    lp = _sim_lp(k=k, deg_f=deg_f)
+    scenarios = []
+    for rate in rates:
+        for dl in deadline_rels:
+            scenarios.append(Scenario(
+                name=f"arrive_r{rate:g}_dl{dl}", family="arrival_grid",
+                lp=lp, p_gg=_const(SIM.n, 0.8), p_bb=_const(SIM.n, 0.7),
+                mu_g=SIM.mu_g, mu_b=SIM.mu_b, deadline=SIM.deadline,
+                rounds=rounds, strategies=("lea",), baseline="lea",
+                meta=(("process", "poisson"), ("rate", rate),
+                      ("deadline_rel", dl), ("capacity", capacity),
+                      ("grace", 0), ("admit_threshold", admit_threshold),
+                      ("reserve_cap", reserve_cap), ("kstar", lp.kstar)),
             ))
     return tuple(scenarios)
 

@@ -467,3 +467,79 @@ def test_thompson_on_the_card_matches_the_replayed_cpu_run(cuda_device):
                                            ("lea", "static"), device=cuda_device)
     assert torch.equal(got[:, [0, 2]], alone)
     assert 0.0 < float(got[:, 1].float().mean()) <= 1.0
+
+
+def _arrival_args(device, rounds, seeds, controlled):
+    """The arrival_grid as sweep_serving's arguments, ``seeds`` rows a cell."""
+    from repro_torch import serving, sweeps
+    scen = sweeps.expand("arrival_grid", rounds=rounds)
+    lp, meta = scen[0].lp, [dict(s.meta) for s in scen]
+    rows = len(scen) * seeds
+    col = lambda key, dtype: torch.tensor([m[key] for m in meta for _ in range(seeds)],
+                                          dtype=dtype, device=device)
+    chain = lambda attr: torch.tensor([getattr(s, attr) for s in scen for _ in range(seeds)],
+                                      dtype=torch.float32, device=device)
+    thr = col("admit_threshold", torch.float32) if controlled else torch.zeros(rows, device=device)
+    cap = (col("reserve_cap", torch.float32) if controlled
+           else torch.full((rows,), serving.ADMIT_ALL_CAP, device=device))
+    spec = serving.RequestSpec(kstar=lp.kstar, ell_g=lp.ell_g, ell_b=lp.ell_b,
+                               deadline_rel=col("deadline_rel", torch.int32),
+                               admit_threshold=thr, reserve_cap=cap)
+    args = (torch.ones((rows, lp.n), dtype=torch.bool, device=device), chain("p_gg"),
+            chain("p_bb"), scen[0].mu_g, scen[0].mu_b, scen[0].deadline, spec,
+            serving.make_process("poisson", rate=col("rate", torch.float32)))
+    return args, dict(rounds=rounds, strategies=("lea", "oracle"), capacity=meta[0]["capacity"],
+                      grace=meta[0]["grace"], device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("controlled", [False, True])
+def test_serving_on_the_card_matches_the_replayed_cpu_run(cuda_device, controlled):
+    """The arrival grid (200 rounds, 2 seeds a cell, lea and oracle) on the
+    card and on the CPU from the same draws: every ServingOutcomes field
+    equal (B1 repeats the plain version's roundings, so no allocation tie
+    flips); B1 launched rounds + 1 times; no sync inside the round loop."""
+    from repro_torch import serving
+    from repro_torch.random import RecordedDraws, ReplayedDraws, torch_draws
+    from repro_torch.serving import engine
+    recorder = RecordedDraws(torch_draws(4, cuda_device))
+    args, kwargs = _arrival_args(cuda_device, 200, 2, controlled)
+    loop = engine._round_loop
+
+    def strict(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return loop(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    before = launch_counts()["success_tails_cuda_w"]
+    engine._round_loop = strict
+    try:
+        on_card = serving.sweep_serving(recorder, *args, **kwargs)
+    finally:
+        engine._round_loop = loop
+    assert launch_counts()["success_tails_cuda_w"] == before + 201
+    cpu_args, cpu_kwargs = _arrival_args("cpu", 200, 2, controlled)
+    on_cpu = serving.sweep_serving(ReplayedDraws(recorder.calls), *cpu_args, **cpu_kwargs)
+    for field in serving.ServingOutcomes._fields:
+        assert torch.equal(getattr(on_card, field).cpu(), getattr(on_cpu, field)), field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["admission", "allocation"])
+def test_tails_kernel_at_the_serving_shapes_is_bit_equal(cuda_device, shape):
+    """B1 as the serving path calls it: the admission gate's (1, 96, M, 15)
+    probabilities with (96, 1, 15) thresholds (stride 0 over the rounds),
+    and a round's allocation, (96 x 6, 15) with per-row thresholds."""
+    rng = np.random.default_rng(0 if shape == "admission" else 1)
+    if shape == "admission":
+        p = torch.from_numpy(_probs(rng, 96 * 300, 15).reshape(1, 96, 300, 15)).to(cuda_device)
+        w = torch.from_numpy(rng.integers(-2, 17, (96, 1, 15)).astype(np.int32)).to(cuda_device)
+    else:
+        p = torch.from_numpy(_probs(rng, 96 * 6, 15)).to(cuda_device)
+        w = torch.from_numpy(rng.integers(-2, 17, (96 * 6, 15)).astype(np.int32)).to(cuda_device)
+    before = launch_counts()["success_tails_cuda_w"]
+    got = success_tails(p, w)
+    assert launch_counts()["success_tails_cuda_w"] == before + 1
+    torch.testing.assert_close(got, success_tails_ref(p, w), rtol=0, atol=0)

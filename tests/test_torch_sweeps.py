@@ -78,7 +78,7 @@ def test_batches_convert_from_the_jax_package_exactly():
 
 
 def test_catalogue_holds_every_family_of_this_slice():
-    assert set(sweeps.family_names()) == set(jsweeps.family_names()) - {"arrival_grid"}
+    assert set(sweeps.family_names()) == set(jsweeps.family_names())
     for name in sweeps.family_names():
         assert sweeps.describe(name) == jsweeps.describe(name)
 
