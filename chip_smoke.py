@@ -141,10 +141,30 @@ Phases, one line each (any failure raises and exits non-zero):
      draws: every ``ServingOutcomes`` field equal; (d) the serving CLI
      (``repro_torch.launch.serve``) at its defaults (shift_exp, 1 000
      rounds) and ``repro_torch.examples.serve_coded.run()`` (B3's exact
-     encode and decodes) on the card, accounting asserted.
+     encode and decodes) on the card, accounting asserted;
+ 13. observability (``repro_torch.obs``) at the paper's widths: (a) fig3
+     (256 rows x 20 000 rounds) through ``sweeps.run_group`` with
+     ``telemetry=True, tap=True, tap_stride=2500``: successes bit-equal to
+     the flags-off call, ``oracle``'s estimator error exactly 0, each row's
+     tap events in order and the last equal to its success sums; (b) phase
+     11a's fault grid with both flags: outcomes bit-equal,
+     ``received_conserve >= received_aon``, tap totals equal the
+     telemetry's sums; (c) the 2 000-round arrival grid, admit-all and
+     controlled, taps every 250 rounds with the round loop under the sync
+     check: outcomes bit-equal, conservation, boundaries x rows x
+     strategies events, ms a round with taps on and off; (d) fig3 (2 000
+     rounds) and 50 exact deg-2 rounds under ``profile_trace``: the trace
+     holds the five engine phase spans, each printed with its host ms and
+     its kernels' device ms; (e) a manifest of (a)'s results and its
+     history record in a temporary directory: the provenance names the
+     card, CUDA and the power limit, and the repo root is unchanged; (f)
+     the serving CLI with ``--progress --tap-log``: every logged event
+     valid; (g) a child process loads every kernel with no ``nvcc`` run,
+     and the launches of (a)-(d) by kernel are printed.
 
 It then prints the kernels' JSON record, the ``nvidia-smi`` line and, last,
-``{"ok": true, "device": {...}}``.  It writes no file.
+``{"ok": true, "device": {...}}``.  It writes no file outside a temporary
+directory it removes (and the kernel libraries under ``build/``).
 """
 
 from __future__ import annotations
@@ -1679,6 +1699,350 @@ def serving_path() -> dict[str, int]:
     return launches
 
 
+# -- phase 13: observability ------------------------------------------------------
+
+def obs_fig3() -> tuple:
+    """Phase 13a: the fig3 sweep (256 rows x 20 000 rounds) with telemetry
+    and taps on, on phase 3's group and generator seed, against the
+    flags-off call; returns the group and its successes."""
+    from repro_torch import obs, sweeps
+    from repro_torch.core.throughput import allocator_strategies
+
+    group, = sweeps.build_groups(sweeps.expand("fig3"), seeds=64)
+    off, wall_off = timed(lambda: sweeps.run_group(group))
+    with obs.capture_taps() as events:
+        (on, frame), wall_on = timed(lambda: sweeps.run_group(group, telemetry=True, tap=True,
+                                                              tap_stride=2500))
+    if not np.array_equal(off, on):
+        raise AssertionError("fig3: the successes with telemetry and taps on differ")
+    oracle = allocator_strategies(group.strategies).index("oracle")
+    if frame.est_err[..., oracle].any():
+        raise AssertionError("fig3: oracle's estimator error is not exactly 0")
+    rows, rounds = on.shape[0], on.shape[1]
+    per_row: dict[int, list] = {}
+    for e in events:
+        obs.validate_event(e)
+        per_row.setdefault(int(e["row"]), []).append(e)
+    bounds = list(range(2500, rounds + 1, 2500))
+    for r in range(rows):
+        es = per_row.get(r, [])
+        if ([int(e["block"]) for e in es] != list(range(len(bounds)))
+                or [int(e["rounds_done"]) for e in es] != bounds):
+            raise AssertionError(f"fig3 row {r}: tap events out of order: "
+                                 f"{[(int(e['block']), int(e['rounds_done'])) for e in es]}")
+        if not np.array_equal(es[-1]["succ_so_far"], on[r].sum(axis=0)):
+            raise AssertionError(f"fig3 row {r}: last tap event is not the row's successes")
+    log("obs_fig3", rows=rows, rounds=rounds, events=len(events), tap_stride=2500,
+        bit_equal=True, oracle_est_err=0.0,
+        est_err_lea_mean=f"{float(frame.est_err[..., 0].mean()):.5f}",
+        frame_bytes=sum(x.nbytes for x in frame), wall_off_s=f"{wall_off:.3f}",
+        wall_on_s=f"{wall_on:.3f}", gpu=json.dumps(nvidia_smi_line()))
+    return group, on
+
+
+def obs_faults() -> None:
+    """Phase 13b: phase 11a's packet_erasure grid (72 rows x 20 000 rounds)
+    with telemetry and taps on against the flags-off call."""
+    from repro_torch import faults, obs, sweeps
+    from repro_torch.random import torch_draws
+
+    args, geometry = fault_grid(sweeps.expand("packet_erasure", rounds=20_000), 8, "cuda")
+    off, wall_off = timed(lambda: faults.sweep_faults(torch_draws(11), *args, **geometry))
+    with obs.capture_taps() as events:
+        (on, tel), wall_on = timed(lambda: faults.sweep_faults(
+            torch_draws(11), *args, **geometry, telemetry=True, tap=True, tap_stride=2500))
+    for field, a, b in zip(faults.FaultOutcomes._fields, off, on):
+        if not torch.equal(a, b):
+            raise AssertionError(f"faults: {field} with telemetry and taps on differs")
+    if not bool((tel.received_conserve >= tel.received_aon).all()):
+        raise AssertionError("faults: a conserving received count below all-or-nothing's")
+    rows = on.full_aon.shape[0]
+    last = {int(e["row"]): e for e in events}
+    pre, lost = tel.preempted.sum(dim=1).cpu(), tel.packets_lost.sum(dim=1).cpu()
+    con = on.full_conserve.sum(dim=1).cpu()
+    for r in range(rows):
+        e = last[r]
+        obs.validate_event(e)
+        if (int(e["preempted_so_far"]) != int(pre[r]) or int(e["packets_lost_so_far"])
+                != int(lost[r]) or not np.array_equal(e["recovered_conserve_so_far"],
+                                                      con[r].numpy())):
+            raise AssertionError(f"faults row {r}: tap totals differ from the telemetry")
+    log("obs_faults", rows=rows, rounds=geometry["rounds"], events=len(events),
+        bit_equal=True, conserve_ge_aon=True, tap_totals_equal=True,
+        preempted=int(pre.sum()), packets_lost=int(lost.sum()),
+        wall_off_s=f"{wall_off:.3f}", wall_on_s=f"{wall_on:.3f}")
+
+
+def obs_serving() -> None:
+    """Phase 13c: the arrival grid (96 rows x 2 000 rounds), admit-all and
+    controlled, with telemetry and taps every 250 rounds, the round loop
+    under the sync check, against the flags-off call."""
+    from repro_torch import obs, serving, sweeps
+    from repro_torch.random import torch_draws
+
+    scenarios = sweeps.expand("arrival_grid")
+    rounds = scenarios[0].rounds
+    for mode in ("admit_all", "controlled"):
+        args, kwargs = serving_grid(scenarios, SERVING_SEEDS, "cuda", mode == "controlled")
+        off, wall_off = timed(lambda: serving.sweep_serving(torch_draws(22), *args, **kwargs))
+        undo = strict_round_loop()
+        try:
+            with obs.capture_taps() as events:
+                (on, tel), wall_on = timed(lambda: serving.sweep_serving(
+                    torch_draws(22), *args, **kwargs, telemetry=True, tap=True,
+                    tap_stride=250))
+        finally:
+            undo()
+        for field, a, b in zip(serving.ServingOutcomes._fields, off, on):
+            if not torch.equal(a, b):
+                raise AssertionError(f"serving {mode}: {field} with the flags on differs")
+        if not conserved(on):
+            raise AssertionError(f"serving {mode}: a row does not conserve its requests")
+        rows, strategies = on.arrivals.shape
+        if len(events) != (rounds // 250) * rows * strategies:
+            raise AssertionError(f"serving {mode}: {len(events)} tap events, not "
+                                 f"{rounds // 250} x {rows} x {strategies}")
+        for e in events:
+            obs.validate_event(e)
+        if not (torch.equal(tel.admitted_t + tel.rejected_t,
+                            tel.arrivals_t[:, None, :].expand_as(tel.admitted_t))
+                and torch.equal(tel.occupancy[..., -1], on.in_flight)):
+            raise AssertionError(f"serving {mode}: telemetry does not reconcile")
+        log("obs_serving", mode=mode, rows=rows, rounds=rounds, events=len(events),
+            tap_stride=250, bit_equal=True, conservation=True,
+            sync_in_round_loop="none (set_sync_debug_mode error, every segment)",
+            ms_per_round_off=f"{wall_off / rounds * 1e3:.4f}",
+            ms_per_round_on=f"{wall_on / rounds * 1e3:.4f}",
+            wall_off_s=f"{wall_off:.3f}", wall_on_s=f"{wall_on:.3f}")
+
+
+ENGINE_SPANS = ("repro.trajectory", "repro.policy_replay", "repro.allocate", "repro.score",
+                "repro.decode")
+
+
+def span_times(trace_path: Path) -> dict[str, dict[str, float]]:
+    """Host ms and calls of each ``repro.*`` (and ``phase13.*``) span in a
+    Chrome trace, and the device ms of the kernels (and copies) launched
+    inside it, matched through the launch's correlation id."""
+    import bisect
+
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    spans: dict[str, list[tuple[float, float]]] = {}
+    launch_ts: dict[int, float] = {}
+    device = []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat, args = e.get("cat", ""), e.get("args") or {}
+        if cat == "user_annotation" and e.get("name", "").startswith(("repro.", "phase13.")):
+            spans.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"]))
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launch_ts[args["correlation"]] = e["ts"]
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset") and "correlation" in args:
+            device.append((args["correlation"], e["dur"]))
+    out = {}
+    for name, ivals in spans.items():
+        ivals.sort()
+        starts = [a for a, _ in ivals]
+        dev_us, kernels = 0.0, 0
+        for corr, dur in device:
+            ts = launch_ts.get(corr)
+            if ts is None:
+                continue
+            i = bisect.bisect_right(starts, ts) - 1
+            if i >= 0 and ts <= ivals[i][1]:
+                dev_us += dur
+                kernels += 1
+        out[name] = {"calls": len(ivals),
+                     "host_ms": round(sum(b - a for a, b in ivals) / 1e3, 3),
+                     "device_ms": round(dev_us / 1e3, 3), "device_ops": kernels}
+    return out
+
+
+def obs_trace(tmp: Path) -> dict:
+    """Phase 13d: fig3 (256 rows x 2 000 rounds) and 50 exact deg-2 rounds
+    under ``profile_trace`` with REPRO_PROFILE set: every engine phase span
+    in the trace, each with its host time and its kernels' device time."""
+    import os
+
+    from repro_torch import obs, sweeps
+    from repro_torch.core import coded_ops as co
+    from repro_torch.core import lagrange as lg
+    from repro_torch.core import throughput
+    from repro_torch.core.lea import LoadParams
+
+    group, = sweeps.build_groups(sweeps.expand("fig3", rounds=2000), seeds=64)
+    spec = lg.CodeSpec(15, 10, 50, 2)
+    rng = np.random.default_rng(62)
+    x = rng.integers(0, P, size=(spec.k, 60, 3000), dtype=np.int32)
+    y = rng.integers(0, P, size=(spec.k, 60), dtype=np.int32)
+    w = torch.as_tensor(rng.integers(0, P, size=(3000,), dtype=np.int32), device="cuda")
+    states, loads, _ = throughput.rollout(22, LoadParams(15, 99, 10, 3), [0.8] * 15,
+                                          [0.533] * 15, 2000, strategies=("lea",),
+                                          device="cuda")
+    masks = co.chunk_on_time(states, loads[0], 10.0, 3.0, 1.0, spec.r)
+    rounds = _feasible_rounds(masks, spec.recovery_threshold)[:50]
+    coded = co.encode_dataset_modp(spec, x, y, device="cuda")
+    sweeps.run_group(group)                                # warm: allocator, caches
+    co.coded_linear_gradient_modp(coded, w, masks[rounds[0]])
+    out_dir = tmp / "profile"
+    saved = os.environ.get(obs.PROFILE_ENV)
+    os.environ[obs.PROFILE_ENV] = str(out_dir)
+    walls = {}
+    try:
+        with obs.profile_trace("phase13"):
+            with obs.annotate("phase13.fig3"):
+                _, walls["fig3"] = timed(lambda: sweeps.run_group(group))
+            with obs.annotate("phase13.exact_deg2"):
+                _, walls["exact_deg2"] = timed(lambda: [co.coded_linear_gradient_modp(
+                    coded, w, masks[m]) for m in rounds])
+    finally:
+        if saved is None:
+            del os.environ[obs.PROFILE_ENV]
+        else:
+            os.environ[obs.PROFILE_ENV] = saved
+    trace, = out_dir.glob("phase13.*.trace.json")
+    spans = span_times(trace)
+    missing = [name for name in ENGINE_SPANS if name not in spans]
+    if missing:
+        raise AssertionError(f"the trace lacks the spans {missing}: {sorted(spans)}")
+    log("obs_trace", fig3_rows=group.batch.rows, fig3_rounds=2000,
+        fig3_wall_ms=f"{walls['fig3'] * 1e3:.3f}", exact_deg2_rounds=len(rounds),
+        exact_deg2_ms_per_round=f"{walls['exact_deg2'] / len(rounds) * 1e3:.3f}",
+        trace_mib=f"{trace.stat().st_size / 2**20:.1f}", gpu=json.dumps(nvidia_smi_line()))
+    for name in ENGINE_SPANS:
+        log("obs_span", span=name, **spans[name])
+    # what each window spent outside its engine spans
+    for window, inner in (("phase13.fig3", ENGINE_SPANS[:4]),
+                          ("phase13.exact_deg2", ENGINE_SPANS[4:])):
+        whole = spans[window]
+        log("obs_span", span=window, **whole, outside_spans_host_ms=round(
+            whole["host_ms"] - sum(spans[n]["host_ms"] for n in inner), 3),
+            outside_spans_device_ms=round(
+                whole["device_ms"] - sum(spans[n]["device_ms"] for n in inner), 3))
+    return spans
+
+
+def obs_provenance(tmp: Path, group, succ) -> None:
+    """Phase 13e: a manifest of 13a's results written with its history
+    record into ``tmp``; the provenance names the card, CUDA and the power
+    limit; nothing is written at the repo root."""
+    import os
+
+    from repro_torch import obs, sweeps
+    from repro_torch.obs import history
+
+    before = sorted(p.name for p in ROOT.iterdir())
+    hist = tmp / "history.jsonl"
+    saved = os.environ.get(history.HISTORY_ENV)
+    os.environ[history.HISTORY_ENV] = str(hist)
+    try:
+        results = sweeps.summarize([group], [succ])
+        doc = sweeps.manifest(results, bench="obs_fig3", device="cuda",
+                              extra={"rows": int(succ.shape[0]), "rounds": int(succ.shape[1])})
+        path = tmp / "BENCH_obs_fig3.json"
+        sweeps.write_manifest(path, doc)
+    finally:
+        if saved is None:
+            del os.environ[history.HISTORY_ENV]
+        else:
+            os.environ[history.HISTORY_ENV] = saved
+    prov = json.loads(path.read_text())["provenance"]
+    if (prov["device"] != torch.cuda.get_device_name(0) or prov["cuda"] != torch.version.cuda
+            or prov["backend"] != "cuda" or prov["power_limit_w"] is None):
+        raise AssertionError(f"provenance does not name the card: {prov}")
+    recs = history.read_history(hist)
+    if len(recs) != 1 or not history.valid_record(recs[0]) or recs[0]["bench"] != "obs_fig3" \
+            or recs[0]["provenance"]["device"] != prov["device"]:
+        raise AssertionError(f"the history record does not round-trip: {recs}")
+    after = sorted(p.name for p in ROOT.iterdir())
+    if after != before:
+        raise AssertionError(f"phase 13 wrote at the repo root: {set(after) ^ set(before)}")
+    log("obs_provenance", device=json.dumps(prov["device"]), cuda=prov["cuda"],
+        power_limit_w=prov["power_limit_w"], torch=prov["torch"], git_sha=prov["git_sha"],
+        history_round_trip=True, repo_root_unchanged=True, scenarios=doc["scenarios"])
+
+
+def obs_cli(tmp: Path) -> None:
+    """Phase 13f: ``python -m repro_torch.launch.serve --progress --tap-log``
+    at its defaults in a child process; every logged event valid."""
+    import os
+
+    from repro_torch import obs
+
+    log_path = tmp / "serve_taps.jsonl"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--progress",
+                           "--tap-log", str(log_path)], capture_output=True, text=True,
+                          timeout=600, env=env, cwd=str(tmp))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or not proc.stdout.strip().endswith("OK"):
+        raise AssertionError(f"serve CLI failed ({proc.returncode}):\n{proc.stdout}\n"
+                             f"{proc.stderr[-2000:]}")
+    events = [json.loads(line) for line in log_path.read_text().splitlines()]
+    for e in events:
+        obs.validate_event(e)
+    if [e["rounds_done"] for e in events] != [125 * (i + 1) for i in range(8)]:
+        raise AssertionError(f"serve CLI: tap events {[e['rounds_done'] for e in events]}")
+    if "[serve]" not in proc.stderr:
+        raise AssertionError("serve CLI: no progress line on stderr")
+    log("obs_cli", wall_s=f"{wall:.3f}", events=len(events), valid=True,
+        last=json.dumps({k: events[-1][k] for k in ("rounds_done", "admitted_so_far",
+                                                     "served_on_time_so_far")}))
+
+
+def obs_counters(launches: dict[str, int]) -> None:
+    """Phase 13g: a child process loads every kernel from build/repro_torch/
+    with no nvcc run; prints this process's launches by kernel for phase 13."""
+    import os
+
+    code = ("import json\n"
+            "from repro_torch.kernels import build\n"
+            "from repro_torch.obs import counters\n"
+            "built = build.build_all()\n"
+            "print(json.dumps({'sources': len(built), 'compile_events': "
+            "counters.compile_events(), 'cache_hits': counters.persistent_cache_hits()}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, env=env)
+    if proc.returncode != 0:
+        raise AssertionError(f"counters child failed:\n{proc.stderr[-2000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    if child["compile_events"] != 0 or child["cache_hits"] != child["sources"]:
+        raise AssertionError(f"a warm process ran nvcc: {child}")
+    from repro_torch import obs
+    log("obs_counters", child=json.dumps(child), parent_compile_events=obs.compile_events(),
+        launches_phase13=json.dumps(launches))
+
+
+def obs_path() -> dict[str, int]:
+    """Phase 13: observability threaded through the engine, fault and
+    serving paths.  The launch counts are set to 0 before 13a and read
+    after 13d; returns them."""
+    import tempfile
+
+    from repro_torch.obs import counters
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        counters.reset_launch_counts()
+        group, succ = obs_fig3()
+        obs_faults()
+        obs_serving()
+        obs_trace(tmp)
+        launches = {k: v for k, v in counters.launch_counts().items() if v}
+        obs_provenance(tmp, group, succ)
+        obs_cli(tmp)
+        obs_counters(launches)
+    if launches.get("success_tails_cuda_w", 0) < 1 or launches.get("bmm_gf_cuda", 0) \
+            + launches.get("matmul_gf_cuda", 0) < 1:
+        raise AssertionError(f"phase 13 did not launch B1 and B3: {launches}")
+    log("obs_path", launches=json.dumps(launches), wall_s=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1810,6 +2174,9 @@ def main() -> int:
     # -- phase 12: the streaming serving layer -------------------------------------
     launches_serving = serving_path()
 
+    # -- phase 13: observability ------------------------------------------------------
+    launches_obs = obs_path()
+
     kernels = []
     launches = {"success_tails_cuda_w": launches_main["success_tails_cuda_w"],
                 "success_tails_cuda": launches_static["success_tails_cuda"],
@@ -1817,7 +2184,7 @@ def main() -> int:
     by_path = {"fig3": {"success_tails_cuda_w": launches_main["success_tails_cuda_w"]},
                "compare": {"success_tails_cuda": launches_static["success_tails_cuda"]},
                "coded": launches_coded, "serve": {"flash_attention_cuda": launches_lm},
-               "faults": launches_faults, "serving": launches_serving}
+               "faults": launches_faults, "serving": launches_serving, "obs": launches_obs}
     for name, (source, replaces) in KERNELS.items():
         entry = record[name]
         kernels.append({

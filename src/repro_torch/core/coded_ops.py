@@ -57,6 +57,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import gf
 from repro_torch.kernels.coded_gradient import coded_gradient
 from repro_torch.kernels.lagrange_encode import encode as encode_routed
+from repro_torch.obs.profiling import phase as _phase
 
 from .lagrange import (CodeSpec, decode_matrix, decode_matrix_jax,
                        decode_matrix_modp_device, generator_matrix,
@@ -196,14 +197,16 @@ def coded_matmul(
 
 def _decode_on_time(spec: CodeSpec, results: torch.Tensor, on_time
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Device decode: (nr, *dims) results + (nr,) bool -> ((k, *dims), ok)."""
-    kstar = spec.recovery_threshold
-    on_time = torch.as_tensor(on_time, device=results.device)
-    received = received_indices(on_time, kstar)
-    d = decode_matrix_jax(spec, received)
-    gathered = results[received]                               # (K*, *dims)
-    ok = on_time.sum() >= kstar
-    return torch.tensordot(d.to(results.dtype), gathered, dims=1), ok
+    """Device decode: (nr, *dims) results + (nr,) bool -> ((k, *dims), ok).
+    The ``decode`` span covers the decode-matrix build and the decode."""
+    with _phase("decode", results.device):
+        kstar = spec.recovery_threshold
+        on_time = torch.as_tensor(on_time, device=results.device)
+        received = received_indices(on_time, kstar)
+        d = decode_matrix_jax(spec, received)
+        gathered = results[received]                           # (K*, *dims)
+        ok = on_time.sum() >= kstar
+        return torch.tensordot(d.to(results.dtype), gathered, dims=1), ok
 
 
 def coded_matmul_device(
@@ -384,15 +387,17 @@ class ModpDecodeCache:
 
 def _decode_on_time_modp(spec: CodeSpec, results: torch.Tensor, on_time
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact decode: (nr, *dims) residues + (nr,) bool -> ((k, *dims), ok)."""
-    kstar = spec.recovery_threshold
-    on_time = torch.as_tensor(on_time, device=results.device)
-    received = received_indices(on_time, kstar)
-    d = decode_matrix_modp_device(spec, received)
-    gathered = results[received]                        # (K*, *dims)
-    ok = on_time.sum() >= kstar
-    out = gf.from_gf(gf.matmul_gf(d, gathered.reshape(kstar, -1)))
-    return out.reshape((spec.k,) + tuple(results.shape[1:])), ok
+    """Exact decode: (nr, *dims) residues + (nr,) bool -> ((k, *dims), ok).
+    The ``decode`` span covers the decode-matrix build and the decode."""
+    with _phase("decode", results.device):
+        kstar = spec.recovery_threshold
+        on_time = torch.as_tensor(on_time, device=results.device)
+        received = received_indices(on_time, kstar)
+        d = decode_matrix_modp_device(spec, received)
+        gathered = results[received]                    # (K*, *dims)
+        ok = on_time.sum() >= kstar
+        out = gf.from_gf(gf.matmul_gf(d, gathered.reshape(kstar, -1)))
+        return out.reshape((spec.k,) + tuple(results.shape[1:])), ok
 
 
 def coded_matmul_exact(

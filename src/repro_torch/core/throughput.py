@@ -52,6 +52,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.obs import taps as _taps
+from repro_torch.obs.profiling import phase as _phase
+from repro_torch.obs.telemetry import TelemetryFrame
 from repro_torch.random import as_draws
 
 from . import lea as lea_mod
@@ -120,12 +123,14 @@ def engine_preamble(draws, mask, p_gg, p_bb, rounds: int, strategies):
     pi_g (B, n))`` for a (B, n) worker ``mask`` (``None``: every worker
     real).  ``p_alloc`` has a zero-size leading axis when no allocator
     strategy is requested."""
-    states = markov.sample_trajectory(draws, p_gg, p_bb, rounds, worker_mask=mask)
+    with _phase("trajectory", p_gg.device):
+        states = markov.sample_trajectory(draws, p_gg, p_bb, rounds, worker_mask=mask)
     pi_g = markov.stationary_good_prob(markov.chain_row0(p_gg),
                                        markov.chain_row0(p_bb))
     alloc_names = allocator_strategies(strategies)
     if alloc_names:
-        p_alloc = _p_good_rows(states, p_gg, p_bb, pi_g, alloc_names, draws)
+        with _phase("policy_replay", p_gg.device):
+            p_alloc = _p_good_rows(states, p_gg, p_bb, pi_g, alloc_names, draws)
     else:
         p_alloc = torch.zeros((0,) + tuple(states.shape), dtype=torch.float32,
                               device=states.device)
@@ -168,10 +173,10 @@ def _static_loads_batch(draws, rounds, start, stop, pis, kstar, ell_g, ell_b,
     return out
 
 
-def _rollout_block(states_b, draws, rounds, start, p_alloc_b, pi_g, load,
-                   strategies):
-    """Loads + feasibility for rounds ``start:start+m``: (S, B, m, n),
-    (S, B, m)."""
+def _rollout_block_stats(states_b, draws, rounds, start, p_alloc_b, pi_g, load,
+                         strategies):
+    """Loads + feasibility + allocator prefixes for rounds
+    ``start:start+m``: (S, B, m, n), (S, B, m), (A, B, m) i*."""
     b, m, n = states_b.shape
     stop = start + m
     kstar, ell_g, ell_b, mask = _load_fields(load)
@@ -179,19 +184,22 @@ def _rollout_block(states_b, draws, rounds, start, p_alloc_b, pi_g, load,
     dev = states_b.device
     always = torch.ones((b, m), dtype=torch.bool, device=dev)
     loads_by = {}
+    prefix = torch.zeros((0, b, m), dtype=torch.int32, device=dev)
     if alloc_names:
-        if isinstance(load, PoolLoad):
-            pool = PoolLoad(kstar=load.kstar[None, :, None],
-                            ell_g=load.ell_g[None, :, None],
-                            ell_b=load.ell_b[None, :, None],
-                            mask=load.mask[None, :, None, :])
-            loads_all, _i_star, feas = lea_mod.allocate_masked(p_alloc_b, pool)
-            for j, s in enumerate(alloc_names):
-                loads_by[s] = (loads_all[j], feas[j])
-        else:
-            loads_all, _i_star = lea_mod.allocate(p_alloc_b, load)
-            for j, s in enumerate(alloc_names):
-                loads_by[s] = (loads_all[j], always)
+        with _phase("allocate", dev):
+            if isinstance(load, PoolLoad):
+                pool = PoolLoad(kstar=load.kstar[None, :, None],
+                                ell_g=load.ell_g[None, :, None],
+                                ell_b=load.ell_b[None, :, None],
+                                mask=load.mask[None, :, None, :])
+                loads_all, i_star, feas = lea_mod.allocate_masked(p_alloc_b, pool)
+                for j, s in enumerate(alloc_names):
+                    loads_by[s] = (loads_all[j], feas[j])
+            else:
+                loads_all, i_star = lea_mod.allocate(p_alloc_b, load)
+                for j, s in enumerate(alloc_names):
+                    loads_by[s] = (loads_all[j], always)
+            prefix = i_star
 
     resampled = [s for s in ("static", "static_equal") if s in strategies]
     if resampled:
@@ -209,28 +217,34 @@ def _rollout_block(states_b, draws, rounds, start, p_alloc_b, pi_g, load,
 
     loads_mat = torch.stack([loads_by[s][0] for s in strategies])
     feasible = torch.stack([loads_by[s][1] for s in strategies])
-    return loads_mat, feasible
+    return loads_mat, feasible, prefix
+
+
+def _rollout_block(states_b, draws, rounds, start, p_alloc_b, pi_g, load,
+                   strategies):
+    """Loads + feasibility for rounds ``start:start+m``: (S, B, m, n),
+    (S, B, m)."""
+    return _rollout_block_stats(states_b, draws, rounds, start, p_alloc_b, pi_g,
+                                load, strategies)[:2]
+
+
+def _score_block_stats(loads_mat, feasible, states_b, mu_g, mu_b, deadline, kstar):
+    """(B, m, S) success indicators for one block (float32 comparisons) and
+    the (S, B, m) on-time evaluations received."""
+    with _phase("score", states_b.device):
+        speeds = torch.where(states_b == 1, mu_g[:, None, None], mu_b[:, None, None])
+        on_time = loads_mat.to(torch.float32) / speeds <= deadline[:, None, None] + 1e-9
+        received = torch.where(on_time, loads_mat, 0).sum(dim=-1)   # (S, B, m)
+        if isinstance(kstar, torch.Tensor):
+            kstar = kstar[:, None]
+        succ = (received >= kstar) & feasible
+    return succ.permute(1, 2, 0), received
 
 
 def _score_block(loads_mat, feasible, states_b, mu_g, mu_b, deadline, kstar):
     """(B, m, S) success indicators for one block (float32 comparisons)."""
-    speeds = torch.where(states_b == 1, mu_g[:, None, None], mu_b[:, None, None])
-    on_time = loads_mat.to(torch.float32) / speeds <= deadline[:, None, None] + 1e-9
-    received = torch.where(on_time, loads_mat, 0).sum(dim=-1)       # (S, B, m)
-    if isinstance(kstar, torch.Tensor):
-        kstar = kstar[:, None]
-    succ = (received >= kstar) & feasible
-    return succ.permute(1, 2, 0)
-
-
-def engine_block(states_b, draws, rounds, start, p_alloc_b, pi_g, load,
-                 strategies, mu_g, mu_b, deadline):
-    """One block of rounds ``start:start+m`` scored: (B, m, S) successes."""
-    loads_mat, feasible = _rollout_block(
-        states_b, draws, rounds, start, p_alloc_b, pi_g, load, strategies
-    )
-    return _score_block(loads_mat, feasible, states_b, mu_g, mu_b, deadline,
-                        load.kstar)
+    return _score_block_stats(loads_mat, feasible, states_b, mu_g, mu_b, deadline,
+                              kstar)[0]
 
 
 def _check_chain_shapes(p_gg, p_bb, rounds: int) -> None:
@@ -244,28 +258,112 @@ def _check_chain_shapes(p_gg, p_bb, rounds: int) -> None:
         )
 
 
+def estimator_error_rounds(states, p_alloc, p_gg, p_bb, pi_g, mask) -> torch.Tensor:
+    """(B, M, A) mean |p_alloc - genie p_good| per round, masked workers
+    excluded (``mask`` (B, n), or None for a full pool).
+
+    The estimator-error stream shared by the telemetry frame and the tap
+    aggregates — one definition so every consumer folds the same floats.
+    The sum over workers runs in PyTorch's order, not XLA's, so it equals
+    the JAX package's to float32 rounding (exactly 0 for ``oracle``).
+    """
+    from repro_torch.policies.estimators import oracle_p_good
+
+    p_true = oracle_p_good(states, p_gg, p_bb, pi_g)             # (B, M, n)
+    err = (p_alloc - p_true[None]).abs()                          # (A, B, M, n)
+    if mask is not None:
+        w = mask.to(torch.float32)[None, :, None, :]
+        est = (err * w).sum(dim=-1) / w.sum(dim=-1).clamp(min=1.0)
+    else:
+        est = err.mean(dim=-1)                                    # (A, B, M)
+    return est.permute(1, 2, 0)
+
+
+def _emit_pool(rows, block, rounds_done, succ_h, err_h, fixed_bound):
+    """Deliver one ``engine.pool`` event a row from one boundary's host
+    (B, S) success and (B, A) estimator-error sums, divided by the rounds
+    done as the JAX package divides them: XLA turns a division by a
+    constant (the unchunked path's ``fixed_bound``) into a product with
+    its float32 reciprocal, and divides by a traced count (a block's)."""
+    done = np.float32(max(rounds_done, 1))
+    per = (lambda x: x * (np.float32(1.0) / done)) if fixed_bound else (lambda x: x / done)
+    b = succ_h.shape[0]
+    _taps.emit_rows(
+        "engine.pool",
+        block=np.full(b, block, np.int32), row=rows,
+        rounds_done=np.full(b, rounds_done, np.int32),
+        succ_so_far=succ_h, throughput_so_far=per(succ_h.astype(np.float32)),
+        est_err_so_far=per(err_h),
+    )
+
+
 def _simulate_batched(draws, load, p_gg, p_bb, mu_g, mu_b, deadline, rounds,
-                      strategies, round_chunk):
-    """The engine on batched tensors: (B, M, S) bool successes."""
+                      strategies, round_chunk, telemetry=False, tap=False,
+                      tap_stride=None, tap_rows=None):
+    """The engine on batched tensors: (B, M, S) bool successes, and with
+    ``telemetry`` a :class:`TelemetryFrame` of (B, M, ...) leaves.
+
+    ``tap``: deliver block aggregates (``engine.pool`` events, one a row)
+    at every ``round_chunk`` block boundary, or at ``tap_stride``
+    boundaries of an unchunked run; ``tap_rows`` labels the rows (default
+    0..B-1).  Neither flag changes the successes.
+    """
     strategies = tuple(strategies)
     _check_strategies(strategies)
     _check_chain_shapes(p_gg, p_bb, rounds)
-    states, p_alloc, pi_g = engine_preamble(draws, _load_fields(load)[3], p_gg, p_bb,
-                                            rounds, strategies)
-    if round_chunk is None or round_chunk >= rounds:
-        return engine_block(states, draws, rounds, 0, p_alloc, pi_g, load,
-                            strategies, mu_g, mu_b, deadline)
-    if round_chunk <= 0:
+    mask = _load_fields(load)[3]
+    states, p_alloc, pi_g = engine_preamble(draws, mask, p_gg, p_bb, rounds, strategies)
+    b, dev = states.shape[0], states.device
+    rows = np.arange(b, dtype=np.int32) if tap_rows is None else np.asarray(tap_rows, np.int32)
+    est_err = (estimator_error_rounds(states, p_alloc, p_gg, p_bb, pi_g, mask)
+               if telemetry or tap else None)
+
+    def block(start, stop):
+        loads_mat, feasible, prefix = _rollout_block_stats(
+            states[:, start:stop], draws, rounds, start, p_alloc[:, :, start:stop],
+            pi_g, load, strategies)
+        succ, received = _score_block_stats(loads_mat, feasible, states[:, start:stop],
+                                            mu_g, mu_b, deadline, load.kstar)
+        if not telemetry:
+            return succ, None
+        i32 = torch.int32
+        return succ, (prefix.to(i32).permute(1, 2, 0),
+                      loads_mat.sum(dim=-1, dtype=i32).permute(1, 2, 0),
+                      received.to(i32).permute(1, 2, 0),
+                      feasible.permute(1, 2, 0))
+
+    if round_chunk is not None and round_chunk <= 0:
         raise ValueError("round_chunk must be positive")
-    blocks = []
-    for start in range(0, rounds, round_chunk):
-        stop = min(start + round_chunk, rounds)
-        blocks.append(engine_block(
-            states[:, start:stop], draws, rounds, start,
-            p_alloc[:, :, start:stop], pi_g, load, strategies,
-            mu_g, mu_b, deadline,
-        ))
-    return torch.cat(blocks, dim=1)
+    chunk = rounds if round_chunk is None or round_chunk >= rounds else round_chunk
+    outs = []
+    if tap and chunk < rounds:
+        succ_cum = torch.zeros((b, len(strategies)), dtype=torch.int32, device=dev)
+        err_cum = torch.zeros(est_err.shape[::2], dtype=torch.float32, device=dev)
+    for bi, start in enumerate(range(0, rounds, chunk)):
+        stop = min(start + chunk, rounds)
+        outs.append(block(start, stop))
+        if tap and chunk < rounds:
+            # the short last block counts only its real rounds
+            succ_cum = succ_cum + outs[-1][0].sum(dim=1, dtype=torch.int32)
+            err_cum = err_cum + est_err[:, start:stop].sum(dim=1)
+            _emit_pool(rows, bi, stop, *_taps.to_host(succ_cum, err_cum), fixed_bound=False)
+    if len(outs) == 1:
+        succ, tel = outs[0]
+    else:
+        succ = torch.cat([o[0] for o in outs], dim=1)
+        tel = None if not telemetry else tuple(
+            torch.cat([o[1][i] for o in outs], dim=1) for i in range(4))
+    if tap and chunk == rounds:
+        # one pass: the stride aggregates are prefix sums of the streams
+        bounds, (succ_h, err_h) = _taps.prefix_sums_at(tap_stride, succ, est_err)
+        for bi, bound in enumerate(bounds):
+            _emit_pool(rows, bi, bound, succ_h[:, bi], err_h[:, bi], fixed_bound=True)
+    if not telemetry:
+        return succ
+    prefix_t, load_total_t, received_t, feasible_t = tel
+    return succ, TelemetryFrame(est_err=est_err, prefix_size=prefix_t,
+                                load_total=load_total_t, received=received_t,
+                                feasible=feasible_t)
 
 
 # ---------------------------------------------------------------------------
@@ -315,15 +413,25 @@ def sweep(draws, lp: LoadParams, p_gg, p_bb, mu_g, mu_b, deadline, rounds: int,
 
 def sweep_pool(draws, pool: PoolLoad, p_gg, p_bb, mu_g, mu_b, deadline,
                rounds: int, strategies=("lea", "static", "oracle"),
-               round_chunk: int | None = None, *, device=None) -> torch.Tensor:
+               round_chunk: int | None = None, telemetry: bool = False,
+               tap: bool = False, tap_stride: int | None = None, *, device=None):
     """:func:`sweep` with per-row load parameters: ``pool`` leaves are (B,)
-    (or scalars) and ``pool.mask`` is (B, n) (or (n,))."""
+    (or scalars) and ``pool.mask`` is (B, n) (or (n,)).
+
+    ``telemetry=True`` returns ``(succ, TelemetryFrame)`` with a leading
+    (B,) axis on every frame leaf.  ``tap=True`` delivers per-row block
+    aggregates (``engine.pool`` events labelled with the batch ``row``) to
+    the registered tap handlers during the run: at every ``round_chunk``
+    block boundary, or every ``tap_stride`` rounds (default: once, at the
+    end) of an unchunked run.  The successes are the same either way.
+    """
     dev = resolve_device(device)
     p_gg, p_bb, mu_g, mu_b, deadline = _batch_inputs(p_gg, p_bb, mu_g, mu_b,
                                                      deadline, dev)
     pool = _batch_pool(pool, p_gg.shape[0], dev)
     return _simulate_batched(as_draws(draws, dev), pool, p_gg, p_bb, mu_g,
-                             mu_b, deadline, rounds, strategies, round_chunk)
+                             mu_b, deadline, rounds, strategies, round_chunk,
+                             telemetry, tap, tap_stride)
 
 
 def simulate_strategies(draws, lp: LoadParams, p_gg, p_bb, mu_g, mu_b, deadline,
@@ -344,14 +452,25 @@ def simulate_strategies(draws, lp: LoadParams, p_gg, p_bb, mu_g, mu_b, deadline,
 def simulate_strategies_pool(draws, pool: PoolLoad, p_gg, p_bb, mu_g, mu_b,
                              deadline, rounds: int,
                              strategies=("lea", "static", "oracle"),
-                             round_chunk: int | None = None, *,
-                             device=None) -> torch.Tensor:
+                             round_chunk: int | None = None,
+                             telemetry: bool = False, tap: bool = False,
+                             tap_stride: int | None = None, *, device=None):
     """:func:`simulate_strategies` with per-row (here: one row's) load
-    parameters as a :class:`PoolLoad` of scalars and an (n,) mask."""
+    parameters as a :class:`PoolLoad` of scalars and an (n,) mask.
+
+    ``telemetry`` / ``tap`` / ``tap_stride`` as in :func:`sweep_pool`; the
+    frame has no batch axis and tap events carry ``row = -1``.
+    """
     dev = resolve_device(device)
-    return sweep_pool(draws, pool, _f32(p_gg, dev)[None], _f32(p_bb, dev)[None],
-                      mu_g, mu_b, deadline, rounds, strategies, round_chunk,
-                      device=dev)[0]
+    p_gg, p_bb, mu_g, mu_b, deadline = _batch_inputs(
+        _f32(p_gg, dev)[None], _f32(p_bb, dev)[None], mu_g, mu_b, deadline, dev)
+    out = _simulate_batched(as_draws(draws, dev), _batch_pool(pool, 1, dev), p_gg, p_bb,
+                            mu_g, mu_b, deadline, rounds, strategies, round_chunk,
+                            telemetry, tap, tap_stride, tap_rows=[-1])
+    if not telemetry:
+        return out[0]
+    succ, frame = out
+    return succ[0], TelemetryFrame(*(x[0] for x in frame))
 
 
 def _rollout(draws, load, p_gg, p_bb, rounds, strategies, dev):

@@ -21,18 +21,24 @@ those failure modes on top of the batched engine:
   * :mod:`~repro_torch.faults.engine` — the batched fault sweep: one pass
     scores all-or-nothing vs conserving vs hierarchical decode per round
     per strategy on SHARED trajectories and SHARED fault traces, every
-    row of a parameter grid carrying its own channel parameters.
+    row of a parameter grid carrying its own channel parameters, with
+    ``telemetry=`` (:class:`FaultTelemetry`) and ``tap=`` streams
+    (:mod:`repro_torch.obs`).
 """
+
+from repro_torch.obs.telemetry import FaultTelemetry
 
 from .channels import (FaultTrace, apply_channel, base_trace, injector_names,
                        make_channel, make_injector, register_injector)
-from .engine import FaultOutcomes, simulate_faults, sweep_faults
+from .engine import (FaultOutcomes, fault_compile_cache_size, simulate_faults,
+                     sweep_faults)
 from .packets import (coded_matmul_exact_packets, coded_matmul_packets,
                       layer1_recovery, packet_counts, packet_on_time)
 
 __all__ = [
-    "FaultOutcomes", "FaultTrace", "apply_channel", "base_trace",
-    "coded_matmul_exact_packets", "coded_matmul_packets", "injector_names",
+    "FaultOutcomes", "FaultTelemetry", "FaultTrace", "apply_channel", "base_trace",
+    "coded_matmul_exact_packets", "coded_matmul_packets", "fault_compile_cache_size",
+    "injector_names",
     "layer1_recovery", "make_channel", "make_injector", "packet_counts",
     "packet_on_time", "register_injector", "simulate_faults", "sweep_faults",
 ]

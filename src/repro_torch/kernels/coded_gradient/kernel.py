@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.obs import counters as _obs_counters
 
 # The JAX kernel's VMEM budget for one chunk's working set (its kernel.py).
 VMEM_BUDGET_BYTES = 12 * 1024 * 1024
@@ -103,6 +104,9 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+_obs_counters.register_launches("coded_gradient", launch_counts, reset_launch_counts)
 
 
 def check_footprint(r_rows: int, c: int, p: int) -> None:

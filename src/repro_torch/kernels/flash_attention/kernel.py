@@ -34,6 +34,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.obs import counters as _obs_counters
 
 # the head dimensions the mma.sync and FFMA kernels are instantiated at
 HEAD_DIMS = (16, 32, 64, 96, 128, 160, 192, 256)
@@ -61,6 +62,9 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+_obs_counters.register_launches("flash_attention", launch_counts, reset_launch_counts)
 
 
 _LIB: ctypes.CDLL | None = None

@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.obs import counters as _obs_counters
 
 _LAUNCHES = {"matmul_gf_cuda": 0, "bmm_gf_cuda": 0}
 _INT_MAX = 2**31 - 1
@@ -39,6 +40,9 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+_obs_counters.register_launches("gf", launch_counts, reset_launch_counts)
 
 
 _LIB: ctypes.CDLL | None = None

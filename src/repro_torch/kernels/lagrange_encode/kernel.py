@@ -16,6 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.obs import counters as _obs_counters
 
 _LAUNCHES = {"encode_matrix_cuda": 0}
 _INT_MAX = 2**31 - 1
@@ -43,6 +44,9 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+_obs_counters.register_launches("lagrange_encode", launch_counts, reset_launch_counts)
 
 
 _LIB: ctypes.CDLL | None = None

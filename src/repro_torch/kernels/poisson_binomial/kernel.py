@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.obs import counters as _obs_counters
 
 _LAUNCHES = {"success_tails_cuda": 0, "success_tails_cuda_w": 0}
 MAX_LEAD = 4            # leading axes of a threshold view with a stride (the kernel's kMaxLead)
@@ -42,6 +43,9 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+_obs_counters.register_launches("poisson_binomial", launch_counts, reset_launch_counts)
 
 
 class ThresholdGeometry(NamedTuple):

@@ -16,12 +16,12 @@ registered arrival process is legal (``--process poisson --rate 1.5``,
 ``--process mmpp ...``); ``--admit-threshold 0 --reserve-cap big`` is
 admit-all.  Exit is 0 unless the accounting identities fail.
 
-``--progress``, ``--tap-stride`` and ``--tap-log`` stream the serving
-loop's tap events in the JAX package; taps belong to the observability
-slice (ROADMAP Queue A, A4) and the flags raise here.  The JAX CLI's
-persistent compile cache (``REPRO_COMPILE_CACHE``, ``enable_compile_cache``)
-belongs to the speed slice (A5) and is left out: the port compiles nothing
-per configuration.
+``--progress`` (a progress line on stderr) and ``--tap-log FILE`` (one JSON
+line a tap event) stream the serving loop's block aggregates while it runs,
+every ``--tap-stride`` rounds (default ``rounds // 8``), as in the JAX
+package.  The JAX CLI's persistent compile cache (``REPRO_COMPILE_CACHE``,
+``enable_compile_cache``) belongs to the speed slice (ROADMAP A5) and is
+left out: the port compiles nothing per configuration.
 """
 
 from __future__ import annotations
@@ -34,6 +34,8 @@ import torch
 from repro_torch import serving
 from repro_torch.core import CodeSpec, LoadParams
 from repro_torch.device import resolve_device
+from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import taps as _taps
 
 
 def _build_process(args):
@@ -91,13 +93,13 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--admit-threshold", type=float, default=0.5)
     ap.add_argument("--reserve-cap", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
-    # live observability (the observability slice, not ported)
+    # live observability (repro_torch.obs taps)
     ap.add_argument("--progress", action="store_true",
-                    help="stream tap events (not ported: raises)")
+                    help="stream tap events; stderr progress line mid-run")
     ap.add_argument("--tap-stride", type=int, default=None,
-                    help="rounds per tap block (not ported: raises)")
+                    help="rounds per tap block (default rounds // 8)")
     ap.add_argument("--tap-log", default=None, metavar="FILE",
-                    help="append tap events to this JSONL file (not ported: raises)")
+                    help="append tap events to this JSONL file")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
     return ap
@@ -112,11 +114,6 @@ def main(argv=None, draws=None, echo=print) -> dict:
     :class:`~repro_torch.random.ArrivalDraws`.
     """
     args = parser().parse_args(argv)
-    if args.progress or args.tap_log or args.tap_stride is not None:
-        raise NotImplementedError(
-            "--progress, --tap-stride and --tap-log need the observability "
-            "slice (ROADMAP Queue A, A4), which is not ported yet"
-        )
     if args.smoke:
         args.rounds = min(args.rounds, 64)
     dev = resolve_device(args.device)
@@ -136,14 +133,31 @@ def main(argv=None, draws=None, echo=print) -> dict:
         deadline_rel=args.deadline_rel,
         admit_threshold=args.admit_threshold, reserve_cap=args.reserve_cap,
     )
-    out = serving.simulate_serving(
-        args.seed if draws is None else draws, torch.ones(args.n, dtype=torch.bool),
-        [args.p_gg] * args.n, [args.p_bb] * args.n,
-        args.mu_g, args.mu_b, args.deadline, req, _build_process(args),
-        rounds=args.rounds, strategies=strategies,
-        capacity=args.capacity, grace=args.grace, device=dev,
-    )
-    out = type(out)(*(x.cpu().numpy() for x in out))
+    tap = bool(args.progress or args.tap_log)
+    stride = args.tap_stride
+    if tap and stride is None:
+        stride = max(args.rounds // 8, 1)
+    progress = _metrics.ProgressLine(total=args.rounds, enabled=args.progress,
+                                     label="serve")
+    handlers = [("serve.progress", progress)] if args.progress else []
+    if args.tap_log:
+        handlers.append(("serve.jsonl", _metrics.JsonlSink(args.tap_log)))
+    for hname, h in handlers:
+        _taps.add_tap(hname, h)
+    try:
+        out = serving.simulate_serving(
+            args.seed if draws is None else draws, torch.ones(args.n, dtype=torch.bool),
+            [args.p_gg] * args.n, [args.p_bb] * args.n,
+            args.mu_g, args.mu_b, args.deadline, req, _build_process(args),
+            rounds=args.rounds, strategies=strategies,
+            capacity=args.capacity, grace=args.grace, tap=tap, tap_stride=stride,
+            device=dev,
+        )
+        out = type(out)(*(x.cpu().numpy() for x in out))
+    finally:
+        for hname, _ in handlers:
+            _taps.remove_tap(hname)
+        progress.close()
 
     summary = {}
     arr = int(out.arrivals[0])

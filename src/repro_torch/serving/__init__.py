@@ -24,24 +24,27 @@ load-adaptive redundancy of *Slack Squeeze Coded Computing*, arXiv
     optional time-axis fault channels, and full per-request accounting
     (:class:`ServingOutcomes` + sojourn streams for latency percentiles).
 
-The JAX package's ``ServingTelemetry`` and ``serving_compile_cache_size``
-belong to the observability slice (ROADMAP Queue A, A4); ``arrival_key``
-has no counterpart, as the port draws through sources, not keys (the
-arrival stream's tag is :data:`repro_torch.random.ARRIVAL_TAG`).
+``telemetry=`` (:class:`ServingTelemetry`) and ``tap=`` streams come from
+:mod:`repro_torch.obs`.  ``arrival_key`` has no counterpart, as the port
+draws through sources, not keys (the arrival stream's tag is
+:data:`repro_torch.random.ARRIVAL_TAG`).
 """
+
+from repro_torch.obs.telemetry import ServingTelemetry
 
 from .admission import admission_budget, admission_room, minimal_demand, predicted_success
 from .arrivals import make_process, process_names, register_process, sample_arrivals
 from .engine import (EVENT_EXPIRED, EVENT_LATE, EVENT_NONE, EVENT_ON_TIME,
-                     ServingOutcomes, simulate_serving, sweep_serving)
+                     ServingOutcomes, serving_compile_cache_size, simulate_serving,
+                     sweep_serving)
 from .queue import (ADMIT_ALL_CAP, RequestQueue, RequestSpec, admit, edf_order,
                     empty_queue, release)
 
 __all__ = [
     "ADMIT_ALL_CAP", "EVENT_EXPIRED", "EVENT_LATE", "EVENT_NONE",
-    "EVENT_ON_TIME", "RequestQueue", "RequestSpec", "ServingOutcomes",
+    "EVENT_ON_TIME", "RequestQueue", "RequestSpec", "ServingOutcomes", "ServingTelemetry",
     "admission_budget", "admission_room", "admit", "edf_order", "empty_queue",
     "make_process", "minimal_demand", "predicted_success", "process_names",
-    "register_process", "release", "sample_arrivals", "simulate_serving",
-    "sweep_serving",
+    "register_process", "release", "sample_arrivals", "serving_compile_cache_size",
+    "simulate_serving", "sweep_serving",
 ]

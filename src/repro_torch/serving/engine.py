@@ -40,21 +40,34 @@ the loop reads a tensor back to the host, so the host syncs a call makes do
 not depend on ``rounds``.  On the card the admission gate is one launch of
 the Poisson-binomial kernel for every (strategy, row, round) and the
 allocation one launch a round for every (strategy, row, slot): ``rounds +
-1`` launches a call.  The JAX package's ``serving_compile_cache_size`` has
-nothing to count here (the port compiles nothing per signature); counting
-recompiles and CUDA-graph captures is the observability slice's
-``counters`` (ROADMAP Queue A, A4).
+1`` launches a call.  The port compiles nothing per signature, so
+:func:`serving_compile_cache_size` counts the kernel builds the path needed
+(:mod:`repro_torch.obs.counters`).
+
+``telemetry=True`` adds a :class:`~repro_torch.obs.ServingTelemetry` of
+per-round arrivals, occupancy, admissions and rejections, computed on the
+device from the loop's own streams.  ``tap=True`` follows the JAX
+package's segmented scan: the engine runs :func:`_round_loop` once per
+``tap_stride`` segment, carrying the queue between calls, and between
+segments copies that boundary's aggregates to the host once and delivers
+one ``serving`` event a (row, strategy) — so each boundary costs one sync
+and the loop itself still reads nothing back.  The outcomes are the same
+either way.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import lea as lea_mod
 from repro_torch.core import throughput
 from repro_torch.device import resolve_device
+from repro_torch.obs import counters as _obs_counters
+from repro_torch.obs import taps as _taps
+from repro_torch.obs.telemetry import ServingTelemetry
 from repro_torch.random import as_draws
 
 from . import admission
@@ -107,12 +120,15 @@ def _check_channel(channel) -> None:
             )
 
 
-def _not_ported(telemetry: bool, tap: bool) -> None:
-    if telemetry or tap:
-        raise NotImplementedError(
-            "telemetry= and tap= need the observability slice "
-            "(ROADMAP Queue A, A4), which is not ported yet"
-        )
+def serving_compile_cache_size() -> int:
+    """Kernel builds the serving path needed in this process.
+
+    The JAX package counts one compiled computation per serving-group
+    signature; the port compiles nothing per signature, so this alias over
+    the unified counter (``obs.compile_events("build.poisson_binomial")``)
+    counts the ``nvcc`` runs of the allocator's source: 0 or 1.
+    """
+    return _obs_counters.compile_events("build.poisson_binomial")
 
 
 def _per_round(x, rows: int, rounds: int, dtype, dev) -> torch.Tensor:
@@ -138,19 +154,18 @@ class _Tables(NamedTuple):
     p_alloc: torch.Tensor       # (M, S, B, n) float32 predicted p_good
 
 
-def _round_loop(tab: _Tables, mask: torch.Tensor, n_valid: torch.Tensor, capacity: int,
-                grace: int):
-    """The rounds, in order, on the device: returns ``(events (M, S, B, Q),
-    sojourn (M, S, B, Q), admitted (M, S, B), occupied (S, B, Q))``.
+def _round_loop(tab: _Tables, mask: torch.Tensor, n_valid: torch.Tensor, grace: int,
+                q: rqueue.RequestQueue, t0: int, t1: int):
+    """Rounds ``t0 .. t1 - 1``, in order, on the device, from queue ``q``:
+    returns ``(events (m, S, B, Q), sojourn (m, S, B, Q), admitted (m, S,
+    B), q)`` for the m = t1 - t0 rounds and the queue after them.
 
     Every op is a tensor op on the tables' device with Python ints as its
     only host inputs, so no round reads anything back to the host.
     """
-    rounds, s, b = tab.gate.shape
     i32, f32 = torch.int32, torch.float32
-    q = rqueue.empty_queue(capacity, (s, b), device=tab.gate.device)
     events, sojourn, admitted = [], [], []
-    for t in range(rounds):
+    for t in range(t0, t1):
         # (1) admission: prediction gate x capacity gate x free slots
         m_active = admission.minimal_demand(q.occupied, q.kstar, q.ell_g)
         room = admission.admission_room(m_active, tab.m_new[t], n_valid, tab.reserve_cap[t])
@@ -173,12 +188,47 @@ def _round_loop(tab: _Tables, mask: torch.Tensor, n_valid: torch.Tensor, capacit
         sojourn.append(torch.where(leave, t + 1 - q.arrival, 0))
         admitted.append(n_admit)
         q = rqueue.release(q, leave)
-    return torch.stack(events), torch.stack(sojourn), torch.stack(admitted), q.occupied
+    return torch.stack(events), torch.stack(sojourn), torch.stack(admitted), q
+
+
+def _segmented_loop(tab: _Tables, mask, n_valid, capacity: int, grace: int,
+                    tap_stride: int | None, rows: np.ndarray):
+    """:func:`_round_loop` once per tap segment, the queue carried between
+    calls; after each segment one copy of the boundary's (S, B) aggregates
+    to the host and one ``serving`` event a (row, strategy)."""
+    rounds, s, b = tab.gate.shape
+    i32 = torch.int32
+    q = rqueue.empty_queue(capacity, (s, b), device=tab.gate.device)
+    bounds = _taps.stride_boundaries(rounds, _taps.resolve_stride(rounds, tap_stride))
+    parts, done = [], 0
+    tot = torch.zeros((4, s, b), dtype=i32, device=tab.gate.device)
+    arrived = tab.counts.cumsum(dim=0, dtype=i32)                          # (M, B)
+    strategy = np.broadcast_to(np.arange(s, dtype=np.int32)[None], (b, s)).reshape(-1)
+    row = np.repeat(rows, s)
+    for bi, bound in enumerate(bounds):
+        events, sojourn, admitted, q = _round_loop(tab, mask, n_valid, grace, q, done, bound)
+        parts.append((events, sojourn, admitted))
+        tot = tot + torch.stack([admitted.sum(dim=0, dtype=i32)]
+                                + [(events == code).sum(dim=(0, -1), dtype=i32)
+                                   for code in (EVENT_ON_TIME, EVENT_LATE, EVENT_EXPIRED)])
+        agg = torch.cat([tot, (arrived[bound - 1] - tot[0])[None],
+                         q.occupied.sum(dim=-1, dtype=i32)[None]])               # (6, S, B)
+        adm, on_t, late, exp, rej, occ = (x.T.reshape(-1) for x in _taps.to_host(agg)[0])
+        _taps.emit_rows(
+            "serving", block=np.full(b * s, bi, np.int32), row=row, strategy=strategy,
+            rounds_done=np.full(b * s, bound, np.int32), admitted_so_far=adm,
+            served_on_time_so_far=on_t, served_late_so_far=late, rejected_so_far=rej,
+            expired_so_far=exp, occupancy=occ)
+        done = bound
+    events, sojourn, admitted = (torch.cat(x) for x in zip(*parts))
+    return events, sojourn, admitted, q
 
 
 def _serving_batched(draws, mask, p_gg, p_bb, mu_g, mu_b, deadline, spec, process,
-                     channel, rounds, strategies, capacity, grace) -> ServingOutcomes:
-    """(B,) rows -> :class:`ServingOutcomes` of (B, S, ...) leaves.
+                     channel, rounds, strategies, capacity, grace, telemetry=False,
+                     tap=False, tap_stride=None, tap_rows=None):
+    """(B,) rows -> :class:`ServingOutcomes` of (B, S, ...) leaves (and a
+    :class:`ServingTelemetry` with ``telemetry``).
 
     ``mask``, ``p_gg``, ``p_bb`` are (B, n); ``mu_g``, ``mu_b``,
     ``deadline`` (B,) float32; every ``spec`` field (B, 1) or (B, rounds).
@@ -221,14 +271,22 @@ def _serving_batched(draws, mask, p_gg, p_bb, mu_g, mu_b, deadline, spec, proces
                            mu_b[:, None, None]).transpose(0, 1).contiguous(),
         t_cut=t_cut, p_alloc=p_alloc.permute(2, 0, 1, 3).contiguous(),
     )
-    events, sojourn, admitted, occupied = _round_loop(tables, mask, n_valid, capacity, grace)
+    if tap:
+        rows = np.arange(b, dtype=np.int32) if tap_rows is None else np.asarray(tap_rows,
+                                                                               np.int32)
+        events, sojourn, admitted, q = _segmented_loop(tables, mask, n_valid, capacity,
+                                                       grace, tap_stride, rows)
+    else:
+        q = rqueue.empty_queue(capacity, (s, b), device=dev)
+        events, sojourn, admitted, q = _round_loop(tables, mask, n_valid, grace, q, 0, rounds)
+    occupied = q.occupied
 
     to_bs = lambda x: x.permute(2, 1, 0, 3).contiguous()               # (M, S, B, Q) -> (B, S, M, Q)
     events_t = to_bs(events)
     count_ev = lambda code: (events_t == code).sum(dim=(-2, -1), dtype=i32)
     arrivals = counts.sum(dim=-1, dtype=i32)[:, None].expand(b, s).contiguous()
     admitted_t = admitted.sum(dim=0, dtype=i32).t().contiguous()       # (B, S)
-    return ServingOutcomes(
+    outcomes = ServingOutcomes(
         arrivals=arrivals,
         admitted=admitted_t,
         served_on_time=count_ev(EVENT_ON_TIME),
@@ -239,6 +297,17 @@ def _serving_batched(draws, mask, p_gg, p_bb, mu_g, mu_b, deadline, spec, proces
         events=events_t,
         sojourn=to_bs(sojourn),
     )
+    if not telemetry:
+        return outcomes
+    # occupancy after round t's departures: what was admitted minus what
+    # left, up to t (every leaving request has a nonzero event)
+    left = (events != EVENT_NONE).sum(dim=-1, dtype=i32)                  # (M, S, B)
+    occupancy = (admitted - left).cumsum(dim=0, dtype=i32)
+    to_bsm = lambda x: x.permute(2, 1, 0).contiguous()                 # (M, S, B) -> (B, S, M)
+    return outcomes, ServingTelemetry(
+        arrivals_t=counts.to(i32), occupancy=to_bsm(occupancy),
+        admitted_t=to_bsm(admitted.to(i32)),
+        rejected_t=to_bsm(counts.t()[:, None, :].to(i32) - admitted))
 
 
 def _spec_rows(spec: rqueue.RequestSpec, b: int, rounds: int, dev,
@@ -279,7 +348,7 @@ def sweep_serving(
     tap: bool = False,
     tap_stride: int | None = None,
     device=None,
-) -> ServingOutcomes:
+):
     """Batched :func:`simulate_serving`: every input carries a leading (B,).
 
     ``p_gg`` / ``p_bb`` are (B, n), ``pool_mask`` (B, n) (or (n,)),
@@ -292,11 +361,11 @@ def sweep_serving(
     :class:`~repro_torch.random.ArrivalDraws` (and
     :class:`~repro_torch.random.FaultDraws` with a channel).  Returns
     :class:`ServingOutcomes` of (B, S) counters and (B, S, rounds, Q)
-    streams.  ``telemetry=`` and ``tap=`` belong to the observability slice
-    and raise ``NotImplementedError``; ``tap_stride`` is accepted for the
-    JAX signature and unused.
+    streams; with ``telemetry`` ``(outcomes, ServingTelemetry)``, every
+    leaf with a leading (B,).  ``tap=True`` delivers one ``serving`` event
+    a (row, strategy) every ``tap_stride`` rounds (default: once, at the
+    end), ``row`` the batch index, while the loop runs.
     """
-    _not_ported(telemetry, tap)
     dev = resolve_device(device)
     p_gg = torch.as_tensor(p_gg, dtype=torch.float32, device=dev)
     p_bb = torch.as_tensor(p_bb, dtype=torch.float32, device=dev)
@@ -307,7 +376,7 @@ def sweep_serving(
     return _serving_batched(
         as_draws(draws, dev), mask, p_gg, p_bb, rows(mu_g), rows(mu_b), rows(deadline),
         _spec_rows(spec, b, rounds, dev, per_round=False), process, tuple(channel),
-        rounds, tuple(strategies), capacity, grace)
+        rounds, tuple(strategies), capacity, grace, telemetry, tap, tap_stride)
 
 
 def simulate_serving(
@@ -330,7 +399,7 @@ def simulate_serving(
     tap: bool = False,
     tap_stride: int | None = None,
     device=None,
-) -> ServingOutcomes:
+):
     """One serving simulation (see module docstring).
 
     ``pool_mask`` (n,) bool marks real workers; ``p_gg`` / ``p_bb`` (n,);
@@ -341,9 +410,10 @@ def simulate_serving(
     serving allocates from predictions); ``channel`` an optional time-axis
     fault channel; ``capacity`` queue slots and ``grace`` the
     late-completion window in rounds.  Returns :class:`ServingOutcomes` of
-    (S,) counters and (S, rounds, Q) streams.
+    (S,) counters and (S, rounds, Q) streams; with ``telemetry``
+    ``(outcomes, ServingTelemetry)``.  ``tap`` / ``tap_stride`` as in
+    :func:`sweep_serving`, events labelled ``row = -1``.
     """
-    _not_ported(telemetry, tap)
     dev = resolve_device(device)
     p_gg = torch.as_tensor(p_gg, dtype=torch.float32, device=dev)[None]
     p_bb = torch.as_tensor(p_bb, dtype=torch.float32, device=dev)[None]
@@ -352,9 +422,12 @@ def simulate_serving(
     out = _serving_batched(
         as_draws(draws, dev), mask, p_gg, p_bb, rows(mu_g), rows(mu_b), rows(deadline),
         _spec_rows(spec, 1, rounds, dev, per_round=True), process, tuple(channel),
-        rounds, tuple(strategies), capacity, grace)
-    return ServingOutcomes(*(x[0] for x in out))
+        rounds, tuple(strategies), capacity, grace, telemetry, tap, tap_stride, tap_rows=[-1])
+    if not telemetry:
+        return ServingOutcomes(*(x[0] for x in out))
+    return (ServingOutcomes(*(x[0] for x in out[0])),
+            ServingTelemetry(*(x[0] for x in out[1])))
 
 
 __all__ = ["EVENT_EXPIRED", "EVENT_LATE", "EVENT_NONE", "EVENT_ON_TIME", "ServingOutcomes",
-           "simulate_serving", "sweep_serving"]
+           "serving_compile_cache_size", "simulate_serving", "sweep_serving"]

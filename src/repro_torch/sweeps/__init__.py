@@ -6,7 +6,8 @@
     plus deadline, bursty-chain, heterogeneous-K*, elastic-pool,
     straggler-slack and non-stationary families;
   * :mod:`~repro_torch.sweeps.executor`  — one batched engine call per group;
-  * :mod:`~repro_torch.sweeps.results`   — throughputs, ratios, CIs, regret.
+  * :mod:`~repro_torch.sweeps.results`   — throughputs, ratios, CIs, regret,
+    provenance-stamped manifests.
 
 The one-liner::
 
@@ -16,15 +17,20 @@ The one-liner::
         print(r.name, r.throughput, f"{r.baseline_ratio:.2f}x")
 """
 
-from .executor import run, run_group, run_groups, suggest_round_chunk
+from repro_torch.obs.telemetry import TelemetryFrame
+
+from .executor import (compile_cache_size, run, run_group, run_groups,
+                       suggest_round_chunk)
 from .registry import (Scenario, ScenarioBatch, SweepGroup, as_dense_schedule,
                        build_groups, catalogue, describe, expand, family_names,
                        register)
-from .results import ScenarioResult, summarize, summarize_group
+from .results import (ScenarioResult, manifest, summarize, summarize_group,
+                      write_manifest)
 
 __all__ = [
-    "Scenario", "ScenarioBatch", "ScenarioResult", "SweepGroup",
-    "as_dense_schedule", "build_groups", "catalogue", "describe", "expand",
-    "family_names", "register", "run", "run_group", "run_groups",
-    "suggest_round_chunk", "summarize", "summarize_group",
+    "Scenario", "ScenarioBatch", "ScenarioResult", "SweepGroup", "TelemetryFrame",
+    "as_dense_schedule", "build_groups", "catalogue", "compile_cache_size",
+    "describe", "expand", "family_names", "manifest", "register", "run",
+    "run_group", "run_groups", "suggest_round_chunk", "summarize",
+    "summarize_group", "write_manifest",
 ]

@@ -7,19 +7,42 @@ call: :func:`run_group` moves the group's batch to the device and runs
 ``torch.Generator`` unless the caller hands in another
 :class:`~repro_torch.random.Draws`.  ``round_chunk`` runs the per-round work
 in blocks of rounds to bound peak memory.
+
+``telemetry=`` returns the group's :class:`~repro_torch.obs.TelemetryFrame`
+beside its successes, ``tap=`` delivers per-row block aggregates to the
+registered tap handlers during the run (:mod:`repro_torch.obs.taps`), and
+every call records its wall-clock (``phase.sweeps_run_group.seconds``) and
+any kernel builds it triggered (``compile.sweeps_run_group.*``) in the
+default metrics registry (:mod:`repro_torch.obs.metrics`).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Sequence
 
+import time
+
 import numpy as np
 
 from repro_torch.core import throughput
 from repro_torch.device import resolve_device
+from repro_torch.obs import counters as _obs_counters
+from repro_torch.obs import metrics as _metrics
 from repro_torch.random import Draws, torch_draws
 
 from .registry import SweepGroup
+
+
+def compile_cache_size() -> int:
+    """Kernel builds the sweep path needed in this process.
+
+    The JAX package counts one compiled computation per group signature;
+    the port compiles nothing per signature, so this alias over the
+    unified counter (``obs.compile_events("build.poisson_binomial")``)
+    counts the ``nvcc`` runs of the Poisson-binomial source the sweep
+    engine launches: 0 or 1, whatever the number of groups.
+    """
+    return _obs_counters.compile_events("build.poisson_binomial")
 
 
 def run_group(
@@ -28,8 +51,18 @@ def run_group(
     round_chunk: int | None = None,
     draws: Draws | None = None,
     device=None,
-) -> np.ndarray:
-    """Execute one group; returns the host (B, rounds, S) bool success array."""
+    telemetry: bool = False,
+    tap: bool = False,
+    tap_stride: int | None = None,
+):
+    """Execute one group; returns the host (B, rounds, S) bool success array.
+
+    With ``telemetry=True`` returns ``(succ, TelemetryFrame)``, the frame's
+    leaves host arrays with the same leading (B,) rows as ``succ``.  With
+    ``tap=True`` the engine delivers per-row block aggregates to the
+    registered tap handlers during the run (``row`` = the batch index); the
+    successes are the same either way.
+    """
     if group.rounds < 1:
         names = ", ".join(sc.name for sc in group.scenarios[:3])
         raise ValueError(
@@ -39,13 +72,22 @@ def run_group(
     dev = resolve_device(device)
     if draws is None:
         draws = torch_draws(group.generator_seed, dev)
-    batch = group.batch.to(dev)
-    succ = throughput.sweep_pool(
-        draws, batch.pool, batch.p_gg, batch.p_bb, batch.mu_g, batch.mu_b,
-        batch.deadline, group.rounds, group.strategies, round_chunk,
-        device=dev,
-    )
-    return succ.cpu().numpy()
+    c0 = _obs_counters.compile_events()
+    t0 = time.perf_counter()
+    with _metrics.timed("phase.sweeps_run_group"):
+        batch = group.batch.to(dev)
+        out = throughput.sweep_pool(
+            draws, batch.pool, batch.p_gg, batch.p_bb, batch.mu_g, batch.mu_b,
+            batch.deadline, group.rounds, group.strategies, round_chunk,
+            telemetry, tap, tap_stride, device=dev,
+        )
+        succ = (out[0] if telemetry else out).cpu().numpy()
+    _metrics.record_compile("sweeps.run_group", _obs_counters.compile_events() - c0,
+                            time.perf_counter() - t0)
+    if not telemetry:
+        return succ
+    b = group.batch.rows
+    return succ[:b], type(out[1])(*(x[:b].cpu().numpy() for x in out[1]))
 
 
 def run_groups(
@@ -54,11 +96,14 @@ def run_groups(
     round_chunk: int | None = None,
     draws: Callable[[SweepGroup], Draws] | None = None,
     device=None,
+    tap: bool = False,
+    tap_stride: int | None = None,
 ) -> list[np.ndarray]:
     """Execute every group; list aligned with ``groups``.  ``draws`` maps a
     group to its :class:`Draws` (default: the group's own generator)."""
     return [run_group(g, round_chunk=round_chunk,
-                      draws=None if draws is None else draws(g), device=device)
+                      draws=None if draws is None else draws(g), device=device,
+                      tap=tap, tap_stride=tap_stride)
             for g in groups]
 
 
@@ -87,13 +132,16 @@ def run(
     round_chunk: int | None = None,
     draws: Callable[[SweepGroup], Draws] | None = None,
     device=None,
+    tap: bool = False,
+    tap_stride: int | None = None,
     **params,
 ):
     """The one-liner: expand -> group -> execute -> summarize.
 
     ``family_or_scenarios`` is a registered family name (``**params`` go to
     its expansion) or an iterable of
-    :class:`~repro_torch.sweeps.registry.Scenario`.  Returns a list of
+    :class:`~repro_torch.sweeps.registry.Scenario`.  ``tap`` /
+    ``tap_stride`` pass through to :func:`run_group`.  Returns a list of
     :class:`~repro_torch.sweeps.results.ScenarioResult` in scenario order.
     """
     from . import results as results_mod
@@ -107,8 +155,8 @@ def run(
         scenarios = tuple(family_or_scenarios)
     groups = build_groups(scenarios, seeds=seeds)
     succs = run_groups(groups, round_chunk=round_chunk, draws=draws,
-                       device=device)
+                       device=device, tap=tap, tap_stride=tap_stride)
     return results_mod.summarize(groups, succs, scenario_order=scenarios)
 
 
-__all__ = ["run", "run_group", "run_groups", "suggest_round_chunk"]
+__all__ = ["compile_cache_size", "run", "run_group", "run_groups", "suggest_round_chunk"]

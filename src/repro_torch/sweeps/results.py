@@ -1,4 +1,4 @@
-"""Results layer: per-scenario throughputs, baseline ratios, CIs, regret.
+"""Results layer: per-scenario throughputs, baseline ratios, CIs, regret, manifests.
 
 Takes the (B, rounds, S) success arrays the executor produces per group and
 folds them back onto scenarios: mean timely throughput per strategy
@@ -13,18 +13,28 @@ Regret axis: whenever a scenario's strategies include the genie
 timely-throughput regret vs the oracle (:mod:`repro_torch.policies.regret`)
 as ``regret_<strategy>`` columns plus paired 95% CIs (``regret_ci95_<s>``).
 
-Manifest writing and provenance stamps are not ported yet.
+:func:`manifest` renders results as a JSON document in the ``BENCH_*.json``
+shape (a ``bench`` name, run metadata, a flat ``results`` list) stamped
+with the run's provenance (:func:`repro_torch.obs.provenance`) and a
+``warnings`` list; :func:`write_manifest` writes it where the caller says
+and appends a history record beside it (``REPRO_BENCH_HISTORY``
+redirects the record).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
+import time
 from typing import Any, Sequence
 
 import numpy as np
 
 from repro_torch.core.throughput import float32_mean
+from repro_torch.obs import history as _history
+from repro_torch.obs.provenance import provenance as _provenance_fn
 from repro_torch.policies import regret as regret_mod
 
 from .registry import Scenario, SweepGroup
@@ -197,3 +207,57 @@ def summarize(
         by_scenario = {r.scenario: r for r in results}
         results = [by_scenario[sc] for sc in scenario_order]
     return results
+
+
+def manifest(
+    results: Sequence[ScenarioResult],
+    *,
+    bench: str,
+    extra: dict[str, Any] | None = None,
+    timestamp: float | None = None,
+    device=None,
+) -> dict[str, Any]:
+    """BENCH_*.json-shaped document: bench name, metadata, flat result rows.
+
+    Every manifest is stamped with run ``provenance`` (git sha + dirty
+    flag, torch / CUDA versions, backend, the card's name and power limit;
+    ``device`` is the device the results came from) and a ``warnings``
+    list (``extra`` may supply it).  ``timestamp`` is passed through to
+    the provenance record — ``time.time()`` when the caller does not care
+    about determinism.
+    """
+    doc: dict[str, Any] = {
+        "bench": bench,
+        "scenarios": len(results),
+        "families": sorted({r.scenario.family for r in results}),
+        "results": [r.row() for r in results],
+    }
+    if extra:
+        doc.update(extra)
+    doc.setdefault("warnings", [])
+    doc.setdefault(
+        "provenance",
+        _provenance_fn(time.time() if timestamp is None else timestamp, device=device),
+    )
+    return doc
+
+
+def write_manifest(path: str | os.PathLike, doc: dict[str, Any]) -> None:
+    """Write a manifest (RFC-8259 strict JSON, trailing newline).
+
+    The provenance / warnings stamps are backstopped here too, so a
+    document assembled by hand still carries them.  Every write also
+    appends a compact history record to ``BENCH_history.jsonl`` next to
+    the manifest — ``REPRO_BENCH_HISTORY`` redirects it (see
+    :mod:`repro_torch.obs.history`; tests and ``chip_smoke.py`` point it
+    at a temporary file).  The append never raises.
+    """
+    doc.setdefault("warnings", [])
+    doc.setdefault("provenance", _provenance_fn(time.time()))
+    with open(path, "w") as f:
+        # allow_nan=False: fail loudly rather than emit non-RFC JSON
+        json.dump(doc, f, indent=2, allow_nan=False)
+        f.write("\n")
+    _history.append_record(
+        _history.history_path(path), _history.record_from_manifest(path, doc)
+    )

@@ -543,3 +543,111 @@ def test_tails_kernel_at_the_serving_shapes_is_bit_equal(cuda_device, shape):
     got = success_tails(p, w)
     assert launch_counts()["success_tails_cuda_w"] == before + 1
     torch.testing.assert_close(got, success_tails_ref(p, w), rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# observability: telemetry and taps on the card
+# ---------------------------------------------------------------------------
+
+def _strict_loop(engine):
+    """The serving round loop with any sync inside it raising."""
+    loop = engine._round_loop
+
+    def strict(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return loop(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    return loop, strict
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("round_chunk", [None, 100])
+def test_engine_telemetry_and_taps_on_the_card(cuda_device, round_chunk):
+    """fig3 (256 rounds, 2 seeds): the successes with telemetry and taps on
+    are the flags-off bits; the frame equals the CPU's on recorded draws;
+    the last tap event of each row is the row's success sums."""
+    from repro_torch import obs, sweeps
+    from repro_torch.random import RecordedDraws, ReplayedDraws, torch_draws
+    group, = sweeps.build_groups(sweeps.expand("fig3", rounds=256), seeds=2)
+    off = sweeps.run_group(group, round_chunk=round_chunk, draws=torch_draws(9, cuda_device),
+                           device=cuda_device)
+    recorder = RecordedDraws(torch_draws(9, cuda_device))
+    with obs.capture_taps() as events:
+        on, frame = sweeps.run_group(group, round_chunk=round_chunk, draws=recorder,
+                                     telemetry=True, tap=True, tap_stride=64,
+                                     device=cuda_device)
+    np.testing.assert_array_equal(off, on)
+    last = {int(e["row"]): e for e in events}
+    for r, e in last.items():
+        np.testing.assert_array_equal(e["succ_so_far"], on[r].sum(0))
+    cpu_succ, cpu_frame = sweeps.run_group(group, round_chunk=round_chunk, telemetry=True,
+                                           draws=ReplayedDraws(recorder.calls), device="cpu")
+    np.testing.assert_array_equal(on, cpu_succ)
+    for field in ("prefix_size", "load_total", "received", "feasible"):
+        np.testing.assert_array_equal(getattr(frame, field), getattr(cpu_frame, field))
+    np.testing.assert_allclose(frame.est_err, cpu_frame.est_err, rtol=1e-6, atol=0)
+    assert not frame.est_err[..., 1].any()
+
+
+@pytest.mark.cuda
+def test_fault_telemetry_and_taps_on_the_card(cuda_device):
+    """The packet_erasure grid (200 rounds, 1 seed a cell): outcomes with the
+    flags on are the flags-off bits; telemetry equals the CPU's on recorded
+    draws; the tap totals equal the telemetry sums."""
+    from repro_torch import faults, obs
+    from repro_torch.random import RecordedDraws, ReplayedDraws, torch_draws
+    args, geometry = _erasure_args(cuda_device, 200, 1)
+    off = faults.sweep_faults(torch_draws(6, cuda_device), *args, **geometry, device=cuda_device)
+    recorder = RecordedDraws(torch_draws(6, cuda_device))
+    with obs.capture_taps() as events:
+        on, tel = faults.sweep_faults(recorder, *args, **geometry, telemetry=True, tap=True,
+                                      tap_stride=50, device=cuda_device)
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+    cpu_args, _ = _erasure_args("cpu", 200, 1)
+    cpu_out, cpu_tel = faults.sweep_faults(ReplayedDraws(recorder.calls), *cpu_args, **geometry,
+                                           telemetry=True, device="cpu")
+    for a, b in zip(on, cpu_out):
+        assert torch.equal(a.cpu(), b)
+    for field, a, b in zip(faults.FaultTelemetry._fields, tel, cpu_tel):
+        assert torch.equal(a.cpu(), b), field
+    assert (tel.received_conserve >= tel.received_aon).all()
+    for e in events[-on.full_aon.shape[0]:]:
+        r = int(e["row"])
+        assert int(e["preempted_so_far"]) == int(tel.preempted[r].sum())
+        assert int(e["packets_lost_so_far"]) == int(tel.packets_lost[r].sum())
+
+
+@pytest.mark.cuda
+def test_serving_taps_on_the_card_sync_only_between_segments(cuda_device):
+    """The arrival grid (200 rounds, 1 seed a cell) with telemetry and taps
+    on: the round loop runs under set_sync_debug_mode("error") in every
+    segment; outcomes equal the flags-off call; telemetry equals the CPU's
+    on recorded draws; the events are boundaries x rows x strategies."""
+    from repro_torch import obs, serving
+    from repro_torch.random import RecordedDraws, ReplayedDraws, torch_draws
+    from repro_torch.serving import engine
+    args, kwargs = _arrival_args(cuda_device, 200, 1, True)
+    off = serving.sweep_serving(torch_draws(8, cuda_device), *args, **kwargs)
+    recorder = RecordedDraws(torch_draws(8, cuda_device))
+    loop, strict = _strict_loop(engine)
+    engine._round_loop = strict
+    try:
+        with obs.capture_taps() as events:
+            on, tel = serving.sweep_serving(recorder, *args, **kwargs, telemetry=True, tap=True,
+                                            tap_stride=50)
+    finally:
+        engine._round_loop = loop
+    for field, a, b in zip(serving.ServingOutcomes._fields, off, on):
+        assert torch.equal(a, b), field
+    rows = on.arrivals.shape[0]
+    assert len(events) == 4 * rows * 2
+    cpu_args, cpu_kwargs = _arrival_args("cpu", 200, 1, True)
+    cpu_out, cpu_tel = serving.sweep_serving(ReplayedDraws(recorder.calls), *cpu_args,
+                                             **cpu_kwargs, telemetry=True)
+    for field, a, b in zip(serving.ServingTelemetry._fields, tel, cpu_tel):
+        assert torch.equal(a.cpu(), b), field
+    assert torch.equal(on.in_flight, tel.occupancy[..., -1])

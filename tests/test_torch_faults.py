@@ -526,10 +526,18 @@ def test_empty_channel_one_packet_aon_is_simulate_strategies_pool():
 
 
 def test_telemetry_and_tap_name_the_observability_slice():
+    """The flags return the observability slice's FaultTelemetry and
+    faults.sweep events, and leave the outcomes as they are."""
+    from repro_torch import obs
     _, _, _, args, geometry = _grid(8)
-    for flag in ("telemetry", "tap"):
-        with pytest.raises(NotImplementedError, match="A4"):
-            faults.sweep_faults(0, *args, **geometry, device=CPU, **{flag: True})
+    off = faults.sweep_faults(0, *args, **geometry, device=CPU)
+    with obs.capture_taps() as events:
+        on, tel = faults.sweep_faults(0, *args, **geometry, device=CPU, telemetry=True,
+                                      tap=True)
+    assert isinstance(tel, faults.FaultTelemetry)
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+    assert [e["engine"] for e in events] == ["faults.sweep"] * len(off.full_aon)
 
 
 def test_draws_protocols_are_checked_where_they_are_taken():

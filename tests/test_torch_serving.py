@@ -591,16 +591,22 @@ def test_refusals_match_the_jax_package():
         throughput.serve_rollout(0, mask[None], np.full((1, N), 0.8, np.float32),
                                  np.full((1, N), 0.7, np.float32), 8, ("lea", "static_equal"),
                                  device=CPU)
-    for flag in ("telemetry", "tap"):
-        with pytest.raises(NotImplementedError, match="A4"):
-            serving.simulate_serving(0, *args, rounds=8, device=CPU, **{flag: True})
-        with pytest.raises(NotImplementedError, match="A4"):
-            serving.sweep_serving(0, mask, np.full((1, N), 0.8, np.float32),
-                                  np.full((1, N), 0.7, np.float32), *args[3:], rounds=8,
-                                  device=CPU, **{flag: True})
-    for flags in (["--progress"], ["--tap-log", "x.jsonl"], ["--tap-stride", "4"]):
-        with pytest.raises(NotImplementedError, match="A4"):
-            serve.main(["--smoke", "--device", "cpu", *flags], echo=lambda line: None)
+    # a tap stride must be positive, in both packages and through the CLI
+    jargs = (jnp.ones((N,), bool), jnp.full((N,), 0.8), jnp.full((N,), 0.7), MU_G, MU_B, D,
+             jserving.RequestSpec(**_admit_all()), jserving.make_process("constant",
+                                                                         per_round=1))
+    with pytest.raises(ValueError, match="tap_stride"):
+        jserving.simulate_serving(jax.random.PRNGKey(0), *jargs, rounds=8, tap=True,
+                                  tap_stride=0)
+    with pytest.raises(ValueError, match="tap_stride"):
+        serving.simulate_serving(0, *args, rounds=8, device=CPU, tap=True, tap_stride=0)
+    with pytest.raises(ValueError, match="tap_stride"):
+        serving.sweep_serving(0, mask, np.full((1, N), 0.8, np.float32),
+                              np.full((1, N), 0.7, np.float32), *args[3:], rounds=8,
+                              device=CPU, tap=True, tap_stride=-1)
+    with pytest.raises(ValueError, match="tap_stride"):
+        serve.main(["--smoke", "--device", "cpu", "--progress", "--tap-stride", "0"],
+                   echo=lambda line: None)
 
 
 # ---------------------------------------------------------------------------
