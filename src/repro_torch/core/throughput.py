@@ -24,7 +24,8 @@ engine vectorises over rounds AND over B independent rows (the JAX package's
   * ALL rounds x rows x policies go through ONE batched allocator call — a
     single Poisson-binomial DP (the CUDA kernel on a GPU);
   * the static strategies resample every round in one loop over tries on
-    the host, stopping when no round is unfinished or after 128 tries;
+    the host, stopping when no round is unfinished or after 128 tries (one
+    host read a try, whatever the number of strategies);
     rounds that finished ignore later draws, so each round sees exactly its
     own draw chain.  ``static`` and ``static_equal`` consume the same draws,
     as in the JAX package; rows still short of K* after the cap carry an
@@ -61,6 +62,9 @@ from . import lea as lea_mod
 from . import markov
 from .lea import LoadParams, PoolLoad
 
+# the classic closed strategy tuple of the JAX package; the engine accepts
+# any registered policy name too (strategy_known)
+STRATEGIES = ("lea", "static", "static_equal", "static_single", "oracle")
 STATIC_STRATEGIES = ("static", "static_equal", "static_single")
 STATIC_MAX_TRIES = 128
 
@@ -160,7 +164,8 @@ def _static_loads_batch(draws, rounds, start, stop, pis, kstar, ell_g, ell_b,
     loads = [torch.zeros((b, m, n), dtype=torch.int32, device=dev) for _ in pis]
     for t in range(STATIC_MAX_TRIES):
         redo = [unfinished(x) for x in loads]
-        if not any(bool(r.any()) for r in redo):
+        # one host read a try: every strategy's flag in one copy
+        if not bool(torch.stack([r.any() for r in redo]).any()):
             break
         u = draws.static(b, rounds, start, stop, n, t).to(dev)
         for j, pi in enumerate(pis):
@@ -247,6 +252,24 @@ def _score_block(loads_mat, feasible, states_b, mu_g, mu_b, deadline, kstar):
                               kstar)[0]
 
 
+def engine_block(states_b, draws, rounds: int, start: int, p_alloc_b, pi_g, load,
+                 strategies, mu_g, mu_b, deadline) -> torch.Tensor:
+    """Rounds ``start:start+m`` of every row scored: (B, m, S) success
+    indicators.
+
+    ``states_b`` (B, m, n) and ``p_alloc_b`` (A, B, m, n) are the block's
+    slices of :func:`engine_preamble`'s outputs; ``mu_g`` / ``mu_b`` /
+    ``deadline`` are (B,).  The block's static draws come from ``draws``
+    at this call.  Both the sync chunked path and the pipelined executor
+    (:mod:`repro_torch.sweeps.executor`) run a block through this one
+    function, so the same draws give the same bits on either path.
+    """
+    loads_mat, feasible, _prefix = _rollout_block_stats(
+        states_b, draws, rounds, start, p_alloc_b, pi_g, load, strategies)
+    return _score_block(loads_mat, feasible, states_b, mu_g, mu_b, deadline,
+                        load.kstar)
+
+
 def _check_chain_shapes(p_gg, p_bb, rounds: int) -> None:
     if p_gg.shape != p_bb.shape:
         raise ValueError(f"p_gg/p_bb shapes differ: {tuple(p_gg.shape)} vs "
@@ -319,13 +342,15 @@ def _simulate_batched(draws, load, p_gg, p_bb, mu_g, mu_b, deadline, rounds,
                if telemetry or tap else None)
 
     def block(start, stop):
+        if not telemetry:
+            return engine_block(states[:, start:stop], draws, rounds, start,
+                                p_alloc[:, :, start:stop], pi_g, load, strategies,
+                                mu_g, mu_b, deadline), None
         loads_mat, feasible, prefix = _rollout_block_stats(
             states[:, start:stop], draws, rounds, start, p_alloc[:, :, start:stop],
             pi_g, load, strategies)
         succ, received = _score_block_stats(loads_mat, feasible, states[:, start:stop],
                                             mu_g, mu_b, deadline, load.kstar)
-        if not telemetry:
-            return succ, None
         i32 = torch.int32
         return succ, (prefix.to(i32).permute(1, 2, 0),
                       loads_mat.sum(dim=-1, dtype=i32).permute(1, 2, 0),
@@ -454,19 +479,22 @@ def simulate_strategies_pool(draws, pool: PoolLoad, p_gg, p_bb, mu_g, mu_b,
                              strategies=("lea", "static", "oracle"),
                              round_chunk: int | None = None,
                              telemetry: bool = False, tap: bool = False,
-                             tap_stride: int | None = None, *, device=None):
+                             tap_stride: int | None = None, tap_row: int | None = None,
+                             *, device=None):
     """:func:`simulate_strategies` with per-row (here: one row's) load
     parameters as a :class:`PoolLoad` of scalars and an (n,) mask.
 
     ``telemetry`` / ``tap`` / ``tap_stride`` as in :func:`sweep_pool`; the
-    frame has no batch axis and tap events carry ``row = -1``.
+    frame has no batch axis.  Tap events carry ``row = tap_row`` (default
+    -1), as in the JAX package.
     """
     dev = resolve_device(device)
     p_gg, p_bb, mu_g, mu_b, deadline = _batch_inputs(
         _f32(p_gg, dev)[None], _f32(p_bb, dev)[None], mu_g, mu_b, deadline, dev)
     out = _simulate_batched(as_draws(draws, dev), _batch_pool(pool, 1, dev), p_gg, p_bb,
                             mu_g, mu_b, deadline, rounds, strategies, round_chunk,
-                            telemetry, tap, tap_stride, tap_rows=[-1])
+                            telemetry, tap, tap_stride,
+                            tap_rows=[-1 if tap_row is None else tap_row])
     if not telemetry:
         return out[0]
     succ, frame = out

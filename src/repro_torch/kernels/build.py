@@ -1,11 +1,12 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
 Each source under ``csrc/`` exposes a plain C interface and is compiled, at
-first use, into a shared library under ``build/repro_torch/`` of the
-checkout (``build/`` is git-ignored)::
+first use, into a shared library under :func:`build_dir` -- ``build/repro_torch/``
+of the checkout (``build/`` is git-ignored), or the directory given to
+:func:`set_build_dir`::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/<name>_<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o <build_dir>/<name>_<hash>.so csrc/<name>.cu
 
 The file name carries a hash of the source and the flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is.  A missing
@@ -43,6 +44,25 @@ class BuildResult:
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _BUILDS: dict[str, BuildResult] = {}
+_CACHE_DIR: Path | None = None      # set_build_dir's directory, if any
+
+
+def set_build_dir(path) -> None:
+    """Build and find libraries under ``path`` from now on (``None``: back
+    to :data:`BUILD_DIR`).  Libraries already loaded stay loaded."""
+    global _CACHE_DIR
+    _CACHE_DIR = None if path is None else Path(path)
+
+
+def build_dir() -> Path:
+    """Where libraries are built and found: the directory given to
+    :func:`set_build_dir`, else :data:`BUILD_DIR`."""
+    return BUILD_DIR if _CACHE_DIR is None else _CACHE_DIR
+
+
+def builds() -> dict[str, BuildResult]:
+    """Each source built or found built in this process, by name."""
+    return dict(_BUILDS)
 
 
 def find_nvcc() -> str:
@@ -60,7 +80,7 @@ def find_nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
 def sources() -> list[str]:
@@ -84,8 +104,8 @@ def build_all(names=None) -> list[BuildResult]:
                 _BUILDS[name] = BuildResult(name, out, 0.0, "")
                 continue
             nvcc = find_nvcc()
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
             os.close(fd)
             proc = subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
@@ -123,4 +143,5 @@ def load(name: str) -> ctypes.CDLL:
 
 
 __all__ = ["BUILD_DIR", "BuildResult", "CSRC", "NVCC_FLAGS", "build",
-           "build_all", "find_nvcc", "library_path", "load", "sources"]
+           "build_all", "build_dir", "builds", "find_nvcc", "library_path", "load",
+           "set_build_dir", "sources"]

@@ -17,13 +17,19 @@ wrapper checks device, dtype, shape and contiguity of the probabilities,
 allocates its output with ``torch.empty``, launches on the current stream,
 raises if the launch reports an error, and adds one to its launch count.  It
 never falls back to the plain version: a tensor off the GPU raises.
+
+A launch is a ``ctypes`` call that no ``TorchDispatchMode`` sees, so each one
+is also handed to the callables registered with :func:`add_launch_observer`
+(the op-cost counter of :mod:`repro_torch.launch.hlo_cost` adds
+:func:`launch_work` there).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+import math
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -46,6 +52,37 @@ def reset_launch_counts() -> None:
 
 
 _obs_counters.register_launches("poisson_binomial", launch_counts, reset_launch_counts)
+
+_OBSERVERS: list[Callable[[torch.Tensor, torch.Tensor], None]] = []
+
+
+def add_launch_observer(observer: Callable[[torch.Tensor, torch.Tensor], None]) -> None:
+    """Call ``observer(probs, w)`` after every launch of either entry point."""
+    _OBSERVERS.append(observer)
+
+
+def remove_launch_observer(observer) -> None:
+    _OBSERVERS.remove(observer)
+
+
+def launch_work(probs: torch.Tensor, w: torch.Tensor) -> tuple[int, int]:
+    """``(bytes, operations)`` one launch needs on these inputs at the least.
+
+    Bytes: ``probs`` read and the tails written once, and each distinct
+    threshold (``w`` as it lies, an axis of stride 0 counted once) read once.
+    Operations per row: n(n+1)/2 fused multiply-adds (two each), n
+    multiplies and n subtractions, plus one add per tail term of each
+    feasible prefix -- the counts max(w, 0)..i+1 this data's thresholds need.
+    """
+    n = probs.shape[-1]
+    rows = probs.numel() // n
+    distinct = math.prod(size for size, stride in zip(w.shape, w.stride()) if stride != 0)
+    moved = 2 * probs.numel() * probs.element_size() + distinct * w.element_size()
+    i = torch.arange(n, device=w.device)
+    lo = torch.clamp(w.to(torch.int64), min=0)
+    adds = torch.where(w <= i + 1, i + 2 - lo, 0)
+    tail_adds = int(adds.sum()) * (rows // max(w.numel() // n, 1))
+    return moved, rows * (n * (n + 1) + 2 * n) + tail_adds
 
 
 class ThresholdGeometry(NamedTuple):
@@ -171,6 +208,8 @@ def _launch(probs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                                geometry.rows, n, view, stream)
     if err != 0:
         raise RuntimeError(f"poisson_binomial kernel launch failed: cudaError {err}")
+    for observe in _OBSERVERS:
+        observe(probs, w)
     return out
 
 
@@ -209,6 +248,6 @@ def success_tails_cuda_w(probs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-__all__ = ["MAX_LEAD", "ThresholdGeometry", "launch_counts", "reset_launch_counts",
-           "success_tails_cuda", "success_tails_cuda_w",
-           "threshold_geometry"]
+__all__ = ["MAX_LEAD", "ThresholdGeometry", "add_launch_observer", "launch_counts",
+           "launch_work", "remove_launch_observer", "reset_launch_counts",
+           "success_tails_cuda", "success_tails_cuda_w", "threshold_geometry"]

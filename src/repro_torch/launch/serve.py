@@ -19,9 +19,9 @@ admit-all.  Exit is 0 unless the accounting identities fail.
 ``--progress`` (a progress line on stderr) and ``--tap-log FILE`` (one JSON
 line a tap event) stream the serving loop's block aggregates while it runs,
 every ``--tap-stride`` rounds (default ``rounds // 8``), as in the JAX
-package.  The JAX CLI's persistent compile cache (``REPRO_COMPILE_CACHE``,
-``enable_compile_cache``) belongs to the speed slice (ROADMAP A5) and is
-left out: the port compiles nothing per configuration.
+package.  ``REPRO_COMPILE_CACHE=<dir>`` moves the kernel libraries into
+``<dir>`` (:func:`repro_torch.launch.cache.enable_compile_cache`, called
+before any work), so a restarted CLI loads them without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import torch
 from repro_torch import serving
 from repro_torch.core import CodeSpec, LoadParams
 from repro_torch.device import resolve_device
+from repro_torch.launch.cache import enable_compile_cache
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import taps as _taps
 
@@ -116,6 +117,7 @@ def main(argv=None, draws=None, echo=print) -> dict:
     args = parser().parse_args(argv)
     if args.smoke:
         args.rounds = min(args.rounds, 64)
+    enable_compile_cache()
     dev = resolve_device(args.device)
 
     spec = CodeSpec(args.n, args.r, args.k, deg_f=args.deg_f)

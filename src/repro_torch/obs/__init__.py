@@ -41,12 +41,12 @@ outputs stay bit-identical.  This package owns everything on top:
     provenance-stamped record, and :func:`trend_report` flags robust
     slowdowns across the trajectory.
 
-The public names are the JAX package's ``repro.obs`` names.  Left to the
-speed slice (ROADMAP A5): the persistent compile cache
-(``launch/cache.py``) and ``counters.note_persistent_cache_hits``, which
-feeds from it in the JAX package; here :func:`counters.persistent_cache_hits`
-counts kernel libraries found already built.  This package imports
-``torch``, ``numpy`` and the standard library only.
+The public names are the JAX package's ``repro.obs`` names.  The
+persistent compile cache is the kernel library directory
+(:mod:`repro_torch.launch.cache` moves it); :func:`counters.persistent_cache_hits`
+counts libraries found already built plus the hits noted by
+``counters.note_persistent_cache_hits``.  This package imports ``torch``,
+``numpy`` and the standard library only.
 """
 
 from .counters import compile_events, counter_names, register_compiled

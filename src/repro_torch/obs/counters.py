@@ -6,7 +6,7 @@ question.  The port compiles nothing per signature; what it compiles are
 its CUDA kernels, each source once per checkout (``nvcc`` into
 ``build/repro_torch/``, hash-keyed).  So a port *compile event* is an
 ``nvcc`` run in this process, read from
-:data:`repro_torch.kernels.build._BUILDS`: every source registers a
+:func:`repro_torch.kernels.build.builds`: every source registers a
 counter ``build.<source>`` here (1 once ``nvcc`` built it in this process,
 else 0), and :func:`compile_events` sums them::
 
@@ -17,8 +17,16 @@ else 0), and :func:`compile_events` sums them::
 A library found already built is a *persistent-cache hit*
 (:func:`persistent_cache_hits`; a :class:`~repro_torch.kernels.build.BuildResult`
 with ``seconds == 0.0``) — the port's counterpart of the JAX package's
-persistent compilation cache, and what a warm process shows: 0 compile
-events, one hit a source.
+persistent compilation cache (the library directory, which
+:func:`repro_torch.launch.cache.enable_compile_cache` can move), and what a
+warm process shows: 0 compile events, one hit a source.
+:func:`note_persistent_cache_hits` adds hits counted by hand.
+
+The JAX package counts trace-cache entries, which a persistent-cache hit
+also creates, so its :func:`backend_compile_events` subtracts the hits.
+The port's compile events are already ``nvcc`` runs, which a hit never
+is: here :func:`backend_compile_events` equals :func:`compile_events`, and
+subtracting the hits would count them twice.
 
 The second registry answers "which kernels did this run launch": each
 kernel module registers its ``launch_counts`` / ``reset_launch_counts``
@@ -34,16 +42,19 @@ Registration is idempotent by name.
 
 from __future__ import annotations
 
+import threading
 from typing import Callable
 
 _REGISTRY: dict[str, Callable[[], int]] = {}
+_NOTED_LOCK = threading.Lock()
+_NOTED_HITS = 0
 _LAUNCHES: dict[str, tuple[Callable[[], dict[str, int]], Callable[[], None]]] = {}
 
 
 def _builds() -> dict:
     from repro_torch.kernels import build
 
-    return build._BUILDS
+    return build.builds()
 
 
 def _nvcc_runs(source: str) -> int:
@@ -90,10 +101,29 @@ def compile_events(name: str | None = None) -> int:
     return int(_REGISTRY[name]())
 
 
+def backend_compile_events(name: str | None = None) -> int:
+    """The "did ``nvcc`` actually run?" view: :func:`compile_events` itself,
+    since a port compile event is an ``nvcc`` run and a cache hit never is
+    one (module docstring)."""
+    return compile_events(name)
+
+
+def note_persistent_cache_hits(n: int = 1) -> None:
+    """Record ``n`` persistent-cache hits beyond the libraries found built."""
+    global _NOTED_HITS
+    if n < 0:
+        raise ValueError(f"persistent cache hits increment must be >= 0: {n}")
+    with _NOTED_LOCK:
+        _NOTED_HITS += int(n)
+
+
 def persistent_cache_hits() -> int:
-    """Kernel libraries loaded from ``build/repro_torch/`` without ``nvcc``
-    in this process (``BuildResult.seconds == 0.0``)."""
-    return sum(1 for result in _builds().values() if result.seconds == 0.0)
+    """Kernel libraries loaded from the library directory without ``nvcc``
+    in this process (``BuildResult.seconds == 0.0``), plus the hits noted by
+    :func:`note_persistent_cache_hits`."""
+    with _NOTED_LOCK:
+        noted = _NOTED_HITS
+    return noted + sum(1 for result in _builds().values() if result.seconds == 0.0)
 
 
 def register_launches(module: str, counts: Callable[[], dict[str, int]],

@@ -148,21 +148,26 @@ def emit_rows(engine: str, **streams) -> None:
         emit(engine, **{k: a[i] for k, a in arrays.items()})
 
 
-def to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
-    """Numpy copies of int32 / float32 / bool tensors of one device in ONE
-    device-to-host copy: each is bit-cast to int32 words, the words are
-    joined, copied and split (bool comes back as bool)."""
-    words, meta = [], []
+def pack_words(*tensors: torch.Tensor) -> tuple[torch.Tensor, list]:
+    """int32 / float32 / bool tensors of one device bit-cast to int32 words
+    and joined into one (W,) int32 tensor on that device, with the layout
+    :func:`unpack_words` splits it by (bool travels as int32)."""
+    words, layout = [], []
     for t in tensors:
         dtype = t.dtype
         w = t.to(torch.int32) if dtype == torch.bool else t
         if w.dtype not in (torch.int32, torch.float32):
             raise TypeError(f"to_host takes int32, float32 or bool tensors, not {dtype}")
         words.append(w.contiguous().view(torch.int32).reshape(-1))
-        meta.append((tuple(t.shape), dtype))
-    flat = torch.cat(words).cpu().numpy() if words else np.zeros(0, np.int32)
+        layout.append((tuple(t.shape), dtype))
+    flat = torch.cat(words) if words else torch.zeros(0, dtype=torch.int32)
+    return flat, layout
+
+
+def unpack_words(flat: np.ndarray, layout: list) -> list[np.ndarray]:
+    """The numpy arrays a host copy of :func:`pack_words`' words holds."""
     out, at = [], 0
-    for shape, dtype in meta:
+    for shape, dtype in layout:
         size = int(np.prod(shape, dtype=np.int64))
         chunk = flat[at:at + size].reshape(shape)
         at += size
@@ -172,6 +177,14 @@ def to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
             chunk = chunk.astype(bool)
         out.append(chunk)
     return out
+
+
+def to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
+    """Numpy copies of int32 / float32 / bool tensors of one device in ONE
+    device-to-host copy: each is bit-cast to int32 words, the words are
+    joined, copied and split (bool comes back as bool)."""
+    flat, layout = pack_words(*tensors)
+    return unpack_words(flat.cpu().numpy(), layout)
 
 
 def prefix_sums_at(tap_stride: int | None, *streams: torch.Tensor):

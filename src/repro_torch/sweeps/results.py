@@ -13,6 +13,9 @@ Regret axis: whenever a scenario's strategies include the genie
 timely-throughput regret vs the oracle (:mod:`repro_torch.policies.regret`)
 as ``regret_<strategy>`` columns plus paired 95% CIs (``regret_ci95_<s>``).
 
+:func:`write_row_shard` / :func:`merge_row_shards` carry one group's
+rows between the processes of :func:`repro_torch.sweeps.run_multihost`.
+
 :func:`manifest` renders results as a JSON document in the ``BENCH_*.json``
 shape (a ``bench`` name, run metadata, a flat ``results`` list) stamped
 with the run's provenance (:func:`repro_torch.obs.provenance`) and a
@@ -240,6 +243,72 @@ def manifest(
         _provenance_fn(time.time() if timestamp is None else timestamp, device=device),
     )
     return doc
+
+
+def _shard_path(spool_dir: str | os.PathLike, group_index: int,
+                process_id: int, num_processes: int) -> str:
+    return os.path.join(
+        str(spool_dir),
+        f"group{group_index}_shard{process_id}of{num_processes}.npy",
+    )
+
+
+def write_row_shard(
+    spool_dir: str | os.PathLike,
+    group_index: int,
+    process_id: int,
+    num_processes: int,
+    succ: np.ndarray,
+) -> str:
+    """Atomically publish one process's interleaved row shard to the spool dir.
+
+    The shard holds the success rows ``r`` of group ``group_index`` with
+    ``r % num_processes == process_id`` (the executor's interleaved row
+    split).  Write-to-temp + ``os.replace``, so the merging process never
+    sees a half-written file; returns the final path.
+    """
+    os.makedirs(str(spool_dir), exist_ok=True)
+    path = _shard_path(spool_dir, group_index, process_id, num_processes)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:  # a handle, not a name: np.save must not
+        np.save(f, np.asarray(succ))  # append its own .npy suffix
+    os.replace(tmp, path)
+    return path
+
+
+def merge_row_shards(
+    spool_dir: str | os.PathLike,
+    group_index: int,
+    num_processes: int,
+    *,
+    timeout_s: float = 600.0,
+    poll_s: float = 0.05,
+) -> np.ndarray:
+    """Re-interleave one group's row shards into the full (B, ...) array.
+
+    Polls the spool dir until every process's shard file exists (atomic
+    renames make existence == completeness), then scatters shard ``p`` into
+    rows ``p::num_processes``, the inverse of the executor's split.  Raises
+    ``TimeoutError`` listing the missing shards otherwise.
+    """
+    paths = [_shard_path(spool_dir, group_index, p, num_processes)
+             for p in range(num_processes)]
+    deadline = time.monotonic() + timeout_s
+    while True:
+        missing = [p for p in paths if not os.path.exists(p)]
+        if not missing:
+            break
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"row shards never arrived after {timeout_s:.0f}s: {missing}"
+            )
+        time.sleep(poll_s)
+    shards = [np.load(p) for p in paths]
+    rows = sum(s.shape[0] for s in shards)
+    out = np.empty((rows,) + shards[0].shape[1:], shards[0].dtype)
+    for p, s in enumerate(shards):
+        out[p::num_processes] = s
+    return out
 
 
 def write_manifest(path: str | os.PathLike, doc: dict[str, Any]) -> None:

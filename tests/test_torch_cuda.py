@@ -651,3 +651,59 @@ def test_serving_taps_on_the_card_sync_only_between_segments(cuda_device):
     for field, a, b in zip(serving.ServingTelemetry._fields, tel, cpu_tel):
         assert torch.equal(a.cpu(), b), field
     assert torch.equal(on.in_flight, tel.occupancy[..., -1])
+
+
+@pytest.mark.cuda
+def test_pipelined_sweep_on_the_card_equals_sync_with_one_b1_launch_a_block(cuda_device):
+    """fig3 (16 rows x 2 000 rounds) at round_chunk 250: 8 blocks, 8 B1
+    launches, the same successes as the sync path on the group's generator,
+    the carries updated in place; with taps, 16 x 8 events and the same
+    successes again."""
+    from repro_torch import obs, sweeps
+    from repro_torch.sweeps import executor
+    group, = sweeps.build_groups(sweeps.expand("fig3", rounds=2000), seeds=4)
+    sync = sweeps.run_group(group, round_chunk=250)
+    before = launch_counts()["success_tails_cuda_w"]
+    piped = sweeps.run_group(group, round_chunk=250, pipeline=True)
+    assert launch_counts()["success_tails_cuda_w"] - before == 8
+    np.testing.assert_array_equal(piped, sync)
+    stats = executor.last_pipeline_stats()
+    assert stats["donated"] is True and stats["blocks"] == 8
+    with obs.capture_taps() as events:
+        tapped = sweeps.run_group(group, round_chunk=250, pipeline=True, tap=True)
+    np.testing.assert_array_equal(tapped, sync)
+    assert len(events) == group.batch.rows * 8
+    assert executor.last_pipeline_stats()["shard_cached"] is True
+
+
+@pytest.mark.cuda
+def test_pipeline_host_copy_waits_for_the_compute_stream(cuda_device):
+    """The side-stream copy to pinned memory starts only after the work
+    queued before it on the compute stream: a buffer written after a long
+    device sleep reaches the host with its final values."""
+    from repro_torch.sweeps.executor import _HostCopy
+    copier = _HostCopy(cuda_device)
+    t = torch.zeros(1 << 22, device=cuda_device)
+    torch.cuda._sleep(100_000_000)
+    t.fill_(7.0)
+    (host,), done = copier.start(t)
+    assert host.is_pinned() and host.device.type == "cpu"
+    assert not done.query()          # the copy waits behind the sleep
+    done.synchronize()
+    assert bool((host == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_cost_rows_on_the_card_count_each_b1_launch(cuda_device):
+    """The op-cost rows run on the card by default; every pool-path entry
+    point launches B1 there, and the counter adds each launch's work."""
+    from repro_torch.launch import hlo_cost
+    for name in hlo_cost.entry_point_names():
+        before = launch_counts()["success_tails_cuda_w"] + launch_counts()["success_tails_cuda"]
+        costs = hlo_cost.entry_costs(name)
+        after = launch_counts()["success_tails_cuda_w"] + launch_counts()["success_tails_cuda"]
+        assert costs.kernel_launches == after - before > 0, name
+        assert 0 < costs.kernel_bytes <= costs.hbm_bytes, name
+        assert 0 < costs.kernel_flops <= costs.other_flops, name
+        row = hlo_cost.cost_row(name, costs)
+        assert row["collective_bytes"] == 0 and row["flops"] > 0
