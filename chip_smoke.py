@@ -76,6 +76,8 @@ Phases, one line each (any failure raises and exits non-zero):
   9. flash attention (B6) against its plain version ``flash_attention_ref``
      on the card: the serving prefill's shape q (4, 16, 2048, 128) against
      k, v (4, 8, 2048, 128) in bf16, fp16 and float32, the same at D = 64,
+     phase 15's prefills (q (4, 24, 2048, 128) over 8 KV heads, (4, 32, 2048,
+     128) over 4),
      the SMOKE configs' D = 32, ragged Sq = Sk = 1000, non-causal,
      decode-aligned Sq = 16 < Sk = 2048, Sq > Sk with rows that must be 0,
      and the Mixtral attention widths (48 over 8 heads, 4096 tokens) with a
@@ -98,8 +100,8 @@ Phases, one line each (any failure raises and exits non-zero):
      for their call and leave PyTorch's flag as they found it: checked);
      B6 must launch 28 times (one per layer) in
      the prefill, the flash prefill's logits must be no further from a
-     float32 copy of the model than 1.5 x the dense bf16 prefill's plus
-     5e-3, four decode steps must match a fresh flash prefill over the same
+     float32 evaluation of the model than 1.5 x the dense bf16 prefill's
+     plus 5e-3, four decode steps must match a fresh flash prefill over the same
      prefix, and every logit must be finite; then one more prefill and 8
      decode steps run under ``torch.profiler`` for the device's busy share
      and the kernels that take the most device time;
@@ -179,6 +181,29 @@ Phases, one line each (any failure raises and exits non-zero):
      world 1 ``run_multihost`` gives ``run``'s results; (d) the op-cost rows
      of the three pool-path entry points (``launch.hlo_cost``), counted on
      the card, B1's bytes and operations included.
+  15. the rest of the dense family served at full width, each as phase 10
+     serves qwen3 (``serve_config``: flash prefill, greedy decode, bf16,
+     seeded random weights): ``llama3_2_3b`` (28 layers, GQA 24 over 8) and
+     ``yi_9b`` (48 layers, GQA 32 over 4, ``decode_attn="sharded_lse"``,
+     decoded locally) on 4 prompts of 2048 tokens and 16 decode steps, and
+     ``nemotron_4_340b`` at full width with 2 of its 96 layers (the only
+     cut: the whole model is 341 B parameters) on 1 prompt of 1024 tokens
+     and 8 decode steps.  B6 must launch once per layer in each prefill
+     (wgmma at D = 128, mma at nemotron's 192), every logit must be finite,
+     the flash prefill within 1.5 x the dense bf16 prefill's error (+5e-3)
+     of a float32 evaluation (each weight upcast as the forward reads it,
+     so no float32 copy of the model is held), two decode steps must match
+     fresh prefills; each line gives prefill ms and tokens/s, decode ms a
+     step, peak memory and B6's route;
+  16. training: ``launch.train.main`` on ``qwen3_0_6b`` at full width
+     (remat, bf16 parameters, float32 moments) with ``--batch 8 --seq 1024
+     --steps 6 --ckpt-every 3 --coded-dp`` into a temporary checkpoint
+     directory, then again with ``--steps 8``, which must resume at step 6
+     with the data cursor and LEA counts of the step-6 checkpoint; every
+     loss finite and the last below the first; B2 launched at least once
+     per coded-DP round (counted over both runs); a 2-step ``--compress
+     int8`` run with finite losses; then one ``make_train_step`` step timed
+     (ms, tokens/s, peak memory) and profiled (idle share).
 
 It then prints the kernels' JSON record, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  It writes no file outside a temporary
@@ -889,6 +914,9 @@ def check_flash_kernel() -> dict:
         ("phi-3-vision d96", 1, 32, 32, 2048, 2048, 96, bf16, True, None, False),
         ("zamba2 d112", 1, 32, 32, 2048, 2048, 112, bf16, True, None, False),
         ("nemotron-4 d192", 1, 96, 8, 1024, 1024, 192, bf16, True, None, False),
+        # phase 15's prefills: llama3.2-3b's GQA groups of 3 and yi-9b's of 8
+        ("llama3.2-3b gqa 24/8", 4, 24, 8, 2048, 2048, 128, bf16, True, None, False),
+        ("yi-9b gqa 32/4", 4, 32, 4, 2048, 2048, 128, bf16, True, None, False),
         ("nemotron-4 d192 fp16", 1, 96, 8, 1024, 1024, 192, f16, True, None, False),
         ("xlstm d192 f32", 1, 4, 4, 2048, 2048, 192, f32, True, None, False),
         ("d40, the next instantiation up", 2, 8, 8, 1000, 1000, 40, bf16, True, None, False),
@@ -967,21 +995,39 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def serve_lm() -> int:
-    """Phase 10: the LM serving path at full width; returns B6's launches
-    in the main path's run (one flash prefill and the decode steps)."""
-    import copy
+class Float32Layers:
+    """A float32 evaluation of bf16 parameters: each tensor upcast when the
+    forward reads it (a layer at a time), so the reference needs one layer's
+    float32 copy, not the model's (yi-9b's would be 35 GB, nemotron-4's
+    65 GB).  The values are those of a float32 copy of the model."""
+
+    def __init__(self, params):
+        self.params = params
+
+    def __getitem__(self, name: str):
+        t = self.params[name]
+        return None if t is None else t.float()
+
+    def layer(self, i: int) -> dict:
+        return {name: t.float() for name, t in self.params.layer(i).items()}
+
+
+def serve_config(name: str, *, batch: int, prompt: int, steps: int, checked_steps,
+                 seed: int, tag: str, profile: bool = False, **overrides) -> int:
+    """One config's serving path at full width (``overrides`` may cut its
+    depth); returns B6's launches in the main path's run (one flash prefill
+    and the decode steps).  Phase 10 (qwen3) and phase 15 (the rest of the
+    dense family) run it."""
     import dataclasses
+    import gc
 
     from repro_torch.configs import ShapeCell, get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import api
 
-    batch, prompt, steps = 4, 2048, 64
-    checked_steps = (0, 21, 42, 63)
-    cfg = get_config("qwen3_0_6b", attn_impl="flash")
+    cfg = get_config(name, attn_impl="flash", **overrides)
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(10)
+    gen.manual_seed(seed)
     params = api.get_model(cfg).init_params(gen, cfg, device="cuda")
     n_params = sum(t.numel() for t in params.parameters())
     tokens = api.make_batch(cfg, ShapeCell("serve", prompt, batch, "prefill"), gen,
@@ -1019,28 +1065,29 @@ def serve_lm() -> int:
         raise AssertionError("a step function left the bf16 split-K flag changed")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if launches_prefill != cfg.n_layers or launches != cfg.n_layers:
-        raise AssertionError(f"B6 launched {launches_prefill} times in the prefill and "
-                             f"{launches} in all, not once per layer ({cfg.n_layers})")
+        raise AssertionError(f"{name}: B6 launched {launches_prefill} times in the prefill "
+                             f"and {launches} in all, not once per layer ({cfg.n_layers})")
     # 4. every logit finite
     if not all(bool(torch.isfinite(t).all()) for t in (first_logits, *kept.values())):
-        raise AssertionError("non-finite logits on the serving path")
+        raise AssertionError(f"{name}: non-finite logits on the serving path")
+    del cache
+    torch.cuda.empty_cache()
 
-    # 2. flash vs dense, against a float32 copy of the model: the kernel must
-    #    be no less accurate than the plain attention it replaces
+    # 2. flash vs dense, against a float32 evaluation of the model: the kernel
+    #    must be no less accurate than the plain attention it replaces
     dense = api.make_prefill_step(cfg, max_len=prompt + steps, attn_impl="ref")
     dense_logits, dense_s = timed(lambda: dense(params, {"tokens": tokens})[0])
+    torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    params32 = copy.deepcopy(params).to(torch.float32)
     ref32 = api.make_prefill_step(cfg32, max_len=prompt, attn_impl="ref")
-    want = ref32(params32, {"tokens": tokens})[0]
-    del params32
+    want = ref32(Float32Layers(params), {"tokens": tokens})[0]
     torch.cuda.empty_cache()
     real = slice(0, cfg.vocab_size)
     err_flash = float((first_logits[:, real] - want[:, real]).abs().max())
     err_dense = float((dense_logits[:, real] - want[:, real]).abs().max())
     if not err_flash <= 1.5 * err_dense + 5e-3:
-        raise AssertionError(f"flash prefill max|err| {err_flash} vs float32, dense bf16 "
-                             f"{err_dense}: above 1.5 x dense + 5e-3")
+        raise AssertionError(f"{name}: flash prefill max|err| {err_flash} vs float32, dense "
+                             f"bf16 {err_dense}: above 1.5 x dense + 5e-3")
 
     # 3. decode vs prefill: step t's logits against a fresh flash prefill over
     #    the prompt and the t + 1 tokens fed so far.  Both are bf16 evaluations
@@ -1056,27 +1103,138 @@ def serve_lm() -> int:
         diff = float((got[:, real] - fresh[:, real]).abs().max())
         worst = max(worst, diff)
         if not diff <= tol:
-            raise AssertionError(f"decode step {t}: max|decode - prefill| {diff} > {tol}")
+            raise AssertionError(f"{name}: decode step {t}: max|decode - prefill| {diff} > {tol}")
     if fa.launch_counts()["flash_attention_cuda"] - before != cfg.n_layers * len(kept):
-        raise AssertionError("a fresh prefill did not launch B6 once per layer")
+        raise AssertionError(f"{name}: a fresh prefill did not launch B6 once per layer")
 
-    profile = profile_serving(prefill, serve, params, tokens)
-
-    log("serve", config=cfg.name, params=n_params, layers=cfg.n_layers,
-        d_model=cfg.d_model, vocab=cfg.padded_vocab, dtype=cfg.dtype,
+    lines = profile_serving(prefill, serve, params, tokens) if profile else {}
+    full = get_config(name)
+    cut = {f"{k}": f"{v} of {getattr(full, k)}" for k, v in overrides.items()}
+    log(tag, config=cfg.name, params=n_params, layers=cfg.n_layers,
+        **({"cut": json.dumps(cut)} if cut else {}),
+        d_model=cfg.d_model, heads=f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim_}",
+        vocab=cfg.padded_vocab, dtype=cfg.dtype,
         batch=batch, prompt=prompt, decode_steps=steps,
         prefill_ms=f"{prefill_s * 1e3:.3f}", dense_prefill_ms=f"{dense_s * 1e3:.3f}",
         prefill_tokens_per_s=f"{batch * prompt / prefill_s:.0f}",
         decode_ms_per_step=f"{decode_s / steps * 1e3:.3f}",
         decode_tokens_per_s=f"{batch * steps / decode_s:.1f}",
         peak_memory_gib=f"{peak_gib:.2f}", flash_launches=launches,
+        b6_route=fa.flash_route(params["embed"].dtype, cfg.head_dim_),
         err_flash_vs_f32=err_flash, err_dense_vs_f32=err_dense,
         decode_vs_prefill_max=worst, decode_vs_prefill_tol=tol,
         checked_steps=json.dumps(list(kept)), bf16_split_k_flag_outside_steps=flag,
         gpu=json.dumps(nvidia_smi_line()))
-    for part, line in profile.items():
-        log("serve_profile", part=part, **line)
+    for part, line in lines.items():
+        log(f"{tag}_profile", part=part, **line)
+    del params, first_logits, kept, logits, dense_logits, want, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
+
+
+def serve_lm() -> int:
+    """Phase 10: ``qwen3_0_6b``'s serving path at full width, profiled."""
+    return serve_config("qwen3_0_6b", batch=4, prompt=2048, steps=64,
+                        checked_steps=(0, 21, 42, 63), seed=10, tag="serve", profile=True)
+
+
+def dense_serve() -> int:
+    """Phase 15: the rest of the dense family served at full width (nemotron-4
+    at 2 of its 96 layers); returns B6's launches over the three main paths
+    (counts set to 0 before each and summed)."""
+    t0 = time.perf_counter()
+    runs = [("llama3_2_3b", dict(batch=4, prompt=2048, steps=16, checked_steps=(0, 15))),
+            ("yi_9b", dict(batch=4, prompt=2048, steps=16, checked_steps=(0, 15))),
+            ("nemotron_4_340b", dict(batch=1, prompt=1024, steps=8, checked_steps=(0, 7),
+                                     n_layers=2))]
+    launches = 0
+    for seed, (name, kw) in enumerate(runs, start=15):
+        launches += serve_config(name, seed=seed, tag="dense_serve", **kw)
+    log("dense_serve_path", b6_launches=launches, wall_s=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
+def train_path(tmp: Path) -> dict[str, int]:
+    """Phase 16: ``launch.train.main`` on ``qwen3_0_6b`` at full width with
+    coded DP, a resume, an int8-compressed run and one timed plain step;
+    returns B2's launches over the two coded-DP runs (counts set to 0 just
+    before the first, read just after the second)."""
+    import math
+
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.kernels import poisson_binomial as pb
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import api
+
+    batch, seq = 8, 1024
+    ckpt = tmp / "ckpt"
+    common = ["--arch", "qwen3_0_6b", "--batch", str(batch), "--seq", str(seq),
+              "--device", "cuda"]
+    coded = common + ["--coded-dp", "--ckpt-every", "3", "--ckpt-dir", str(ckpt)]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launch_counts()
+    first, first_s = timed(lambda: train_mod.main(coded + ["--steps", "6"]))
+    after_first = pb.launch_counts()["success_tails_cuda"]
+    second, second_s = timed(lambda: train_mod.main(coded + ["--steps", "8"]))
+    b2 = pb.launch_counts()["success_tails_cuda"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rounds = len(first["history"]) + len(second["history"])
+    if rounds != 8 or after_first < 6 or b2 < rounds:
+        raise AssertionError(f"B2 launched {b2} times ({after_first} in the first run) "
+                             f"over {rounds} coded-DP rounds; at least one a round")
+    # the resume: steps 6 and 7 from the step-6 checkpoint and its data cursor
+    if [h["step"] for h in second["history"]] != [6, 7]:
+        raise AssertionError(f"resume did not pick up step 6: {second['history']}")
+    meta = json.loads((ckpt / "step_6" / "meta.json").read_text())
+    if meta["pipeline"]["step"] != 6 or meta["lea"]["rounds"] != 6:
+        raise AssertionError(f"step 6's checkpoint holds {meta['pipeline']}, "
+                             f"{meta['lea']['rounds']} rounds")
+    losses = [h["loss"] for h in first["history"] + second["history"] if "loss" in h]
+    if not losses or not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"coded-DP training losses {losses}: not finite and falling")
+    misses = sum(1 for h in first["history"] + second["history"] if "missed_deadline" in h)
+    log("train", config=get_config("qwen3_0_6b").name, batch=batch, seq=seq, steps=8, resumed_at=6,
+        losses=json.dumps([round(x, 4) for x in losses]), deadline_misses=misses,
+        timely_throughput=f"{second['timely_throughput']:.3f}",
+        b2_launches=b2, rounds=rounds, first_run_s=f"{first_s:.2f}",
+        resumed_run_s=f"{second_s:.2f}", ms_per_coded_step=f"{first_s / 6 * 1e3:.1f}",
+        peak_memory_gib=f"{peak_gib:.2f}", gpu=json.dumps(nvidia_smi_line()))
+
+    packed = train_mod.main(common + ["--steps", "2", "--compress", "int8"])
+    packed_losses = [h["loss"] for h in packed["history"]]
+    if len(packed_losses) != 2 or not all(math.isfinite(x) for x in packed_losses):
+        raise AssertionError(f"int8-compressed losses {packed_losses}")
+    log("train_compress", kind="int8", losses=json.dumps(packed_losses))
+
+    # one plain step through make_train_step, timed and profiled
+    cfg = get_config("qwen3_0_6b")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    state = api.init_state(cfg, gen, device="cuda")
+    step = api.make_train_step(cfg, peak_lr=1e-3, warmup=5, total_steps=10)
+    data = api.make_batch(cfg, ShapeCell("train", seq, batch, "train"), gen, device="cuda")
+    state, _ = step(state, data)                          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    (state, metrics), step_s = timed(lambda: step(state, data))
+    peak_step = torch.cuda.max_memory_allocated() / 2**30
+    box = {"state": state}
+
+    def one_step():
+        box["state"], box["metrics"] = step(box["state"], data)
+    window = profile_window(one_step)
+    if not math.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"plain step loss {float(metrics['loss'])}")
+    log("train_step", config=cfg.name, batch=batch, seq=seq, remat=cfg.remat,
+        scan_groups=cfg.scan_groups, microbatch=cfg.microbatch,
+        loss=f"{float(metrics['loss']):.4f}", ms_per_step=f"{step_s * 1e3:.1f}",
+        tokens_per_s=f"{batch * seq / step_s:.0f}", peak_memory_gib=f"{peak_step:.2f}",
+        **{f"profile_{k}": v for k, v in window.items()}, gpu=json.dumps(nvidia_smi_line()))
+    log("train_path", b2_launches=b2, wall_s=f"{time.perf_counter() - t0:.1f}")
+    del state, box
+    torch.cuda.empty_cache()
+    return {"success_tails_cuda": b2}
 
 
 def profile_window(fn) -> dict:
@@ -2451,6 +2609,14 @@ def main() -> int:
     # -- phase 14: the speed layer -------------------------------------------------
     launches_speed = speed_path(bench)
 
+    # -- phase 15: the rest of the dense family, served -----------------------------
+    launches_dense = dense_serve()
+
+    # -- phase 16: training ----------------------------------------------------------
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_train = train_path(Path(tmp))
+
     kernels = []
     launches = {"success_tails_cuda_w": launches_main["success_tails_cuda_w"],
                 "success_tails_cuda": launches_static["success_tails_cuda"],
@@ -2459,7 +2625,8 @@ def main() -> int:
                "compare": {"success_tails_cuda": launches_static["success_tails_cuda"]},
                "coded": launches_coded, "serve": {"flash_attention_cuda": launches_lm},
                "faults": launches_faults, "serving": launches_serving, "obs": launches_obs,
-               "speed": launches_speed}
+               "speed": launches_speed, "dense_serve": {"flash_attention_cuda": launches_dense},
+               "train": launches_train}
     for name, (source, replaces) in KERNELS.items():
         entry = record[name]
         kernels.append({

@@ -160,8 +160,8 @@ SHAPE_CELLS: dict[str, ShapeCell] = {
     "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
 }
 
-# The architectures the port holds; the JAX package lists ten.
-_ARCHS = ("qwen3_0_6b",)
+# The architectures the port holds (the dense family); the JAX package lists ten.
+_ARCHS = ("qwen3_0_6b", "nemotron_4_340b", "yi_9b", "llama3_2_3b")
 
 
 def list_configs() -> tuple[str, ...]:

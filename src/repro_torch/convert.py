@@ -2,11 +2,12 @@
 
 The JAX package's "weights" are its scenario batches, load parameters and
 estimator states, for the coded-computing half its encoded datasets, and
-for the LM zoo its parameter trees (:func:`lm_params`).  Hand their leaves
-over as numpy arrays (``np.asarray`` of each JAX array) and :func:`to_torch`
-rebuilds the port's counterpart on a chosen device, so both packages run
-the same scenarios on the same data.  Objects are
-read by field name, so nothing of the JAX package is imported here.
+for the LM zoo its parameter trees (:func:`lm_params`) and training states
+(:func:`train_state`).  Hand their leaves over as numpy arrays
+(``np.asarray`` of each JAX array) and :func:`to_torch` rebuilds the port's
+counterpart on a chosen device, so both packages run the same scenarios on
+the same data.  Objects are read by field name, so nothing of the JAX
+package is imported here.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from repro_torch.core.lagrange import CodeSpec
 from repro_torch.core.lea import EstimatorState, LoadParams, PoolLoad
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import DecoderLM
+from repro_torch.optim import TrainState
 from repro_torch.sweeps.registry import ScenarioBatch
 
 _DTYPES = {
@@ -123,6 +125,21 @@ def lm_params(np_params: dict, cfg, device=None) -> DecoderLM:
     return DecoderLM(tree)
 
 
+def train_state(np_state, cfg, device=None) -> TrainState:
+    """The port's :class:`TrainState` from the JAX package's ``TrainState``
+    of a dense decoder LM given as numpy arrays: ``params``, ``m`` and ``v``
+    each through :func:`lm_params` (the moments keep their dtype, bf16 for
+    nemotron), the parameters made trainable, ``step`` an int32 0-d tensor."""
+    dev = resolve_device(device)
+    moment = lambda tree: lm_params(tree, cfg, dev).tensors()
+    return TrainState(
+        params=lm_params(np_state.params, cfg, dev).trainable(),
+        m={name: t.detach() for name, t in moment(np_state.m).items()},
+        v={name: t.detach() for name, t in moment(np_state.v).items()},
+        step=torch.tensor(int(np.asarray(np_state.step)), dtype=torch.int32, device=dev),
+    )
+
+
 def to_torch(obj, device=None):
     """Dispatch on the object's fields: a scenario batch, a pool load, an
     estimator state, an encoded dataset or load parameters."""
@@ -140,4 +157,4 @@ def to_torch(obj, device=None):
 
 
 __all__ = ["code_spec", "coded_dataset", "estimator_state", "lm_params",
-           "load_params", "pool_load", "scenario_batch", "to_torch"]
+           "load_params", "pool_load", "scenario_batch", "to_torch", "train_state"]

@@ -1,14 +1,17 @@
-"""Public model API of the port: family dispatch and the serving step
-builders (``repro/models/api.py``).
+"""Public model API of the port: family dispatch and the ``make_*_step``
+functions (``repro/models/api.py``).
 
-  * :func:`get_model`         — family -> (init_params, prefill, decode_step,
-                                init_cache); the dense ``lm`` family only;
-  * :func:`make_prefill_step` / :func:`make_serve_step` — each call runs
-                                under :func:`float32_split_k_sums`;
+  * :func:`get_model`         — family -> (init_params, train_loss, prefill,
+                                decode_step, init_cache); the dense ``lm``
+                                family only;
+  * :func:`make_train_step`   — loss + grad + microbatch accumulation +
+                                AdamW; :func:`init_state` its state;
+  * :func:`make_prefill_step` / :func:`make_serve_step` — serving;
   * :func:`make_batch`        — a random batch from a ``torch.Generator``.
 
-Training (``train_loss``, ``make_train_step``, ``optim``), the input specs
-and the sharding rules wait for later slices.
+Every step function runs under :func:`float32_split_k_sums`.  The input
+specs, ``grad_shardings``, the ``abstract_*`` shapes and the sharding rules
+wait for the multi-card slice.
 """
 
 from __future__ import annotations
@@ -18,15 +21,20 @@ import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention.ops import NO_BACKWARD
+from repro_torch.optim import TrainState, adamw_init, adamw_update, cosine_warmup
+from repro_torch.runtime.fault_tolerance import split_batch
 
 from . import lm
 
 
 class Model(NamedTuple):
     init_params: Callable
+    train_loss: Callable
     prefill: Callable
     decode_step: Callable
     init_cache: Callable
@@ -46,7 +54,8 @@ def get_model(cfg: ArchConfig) -> Model:
     elif cfg.frontend is not None:
         family = f"{cfg.frontend} frontend"
     else:
-        return Model(lm.init_params, lm.prefill, lm.decode_step, lm.init_cache)
+        return Model(lm.init_params, lm.train_loss, lm.prefill, lm.decode_step,
+                     lm.init_cache)
     raise NotImplementedError(
         f"{cfg.name}: the {family} models are not ported yet; a later slice of "
         "the LM zoo brings them (ROADMAP.md, Queue A)")
@@ -84,6 +93,77 @@ def float32_split_k_sums():
         flags.allow_bf16_reduced_precision_reduction = before
 
 
+def loss_and_grads(params, batch, cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    """``train_loss`` and its gradients by parameter name (``params.tensors()``
+    names; each in its parameter's dtype, as ``jax.value_and_grad`` gives)."""
+    tensors = params.tensors()
+    loss = get_model(cfg).train_loss(params, batch, cfg)
+    grads = torch.autograd.grad(loss, list(tensors.values()))
+    return loss.detach(), dict(zip(tensors, grads))
+
+
+def make_train_step(cfg: ArchConfig, *, peak_lr: float = 3e-4, warmup: int = 100,
+                    total_steps: int = 10_000, grad_transform: Callable | None = None):
+    """(TrainState, batch) -> (TrainState, {"loss", "grad_norm"}) with
+    microbatch gradient accumulation (``cfg.microbatch``).
+
+    ``accum_mode="grads"`` adds each microbatch's gradients in
+    ``grad_accum_dtype``, then divides by the count and casts to float32;
+    ``"loss_scan"`` takes one gradient of the mean microbatch loss, each
+    microbatch's forward checkpointed.  ``grad_transform(grads) -> grads``
+    (gradient compression, coded-DP decode) runs before AdamW.  The state's
+    tensors are updated in place.  A config with ``attn_impl="flash"``
+    raises here: B6 has no backward pass.
+    """
+    if cfg.attn_impl == "flash":
+        raise RuntimeError(NO_BACKWARD)
+    model = get_model(cfg)
+    mb = max(1, cfg.microbatch)
+
+    def train_step(state: TrainState, batch):
+        with float32_split_k_sums():
+            if mb == 1:
+                loss, grads = loss_and_grads(state.params, batch, cfg)
+            elif cfg.accum_mode == "loss_scan":
+                tensors = state.params.tensors()
+                micro = lambda sub: model.train_loss(state.params, sub, cfg)
+                total = None
+                for sub in split_batch(batch, mb):
+                    part = checkpoint(micro, sub, use_reentrant=False)
+                    total = part if total is None else total + part
+                total = total / mb
+                grads = dict(zip(tensors, torch.autograd.grad(total, list(tensors.values()))))
+                loss = total.detach()
+            else:
+                acc_dt = getattr(torch, cfg.grad_accum_dtype)
+                loss, grads = None, None
+                for sub in split_batch(batch, mb):
+                    loss_i, g_i = loss_and_grads(state.params, sub, cfg)
+                    g_i = {name: g.to(acc_dt) for name, g in g_i.items()}
+                    if grads is None:
+                        loss, grads = loss_i, g_i
+                    else:
+                        loss = loss + loss_i
+                        grads = {name: grads[name] + g_i[name] for name in grads}
+                loss = loss / mb
+                grads = {name: (g / mb).to(torch.float32) for name, g in grads.items()}
+            if grad_transform is not None:
+                grads = grad_transform(grads)
+            lr = cosine_warmup(state.step + 1, peak_lr=peak_lr, warmup=warmup,
+                               total=total_steps)
+            new_state, om = adamw_update(state, grads, lr)
+        return new_state, {"loss": loss, **om}
+
+    return train_step
+
+
+def init_state(cfg: ArchConfig, generator: torch.Generator, device=None) -> TrainState:
+    """Trainable random parameters (``init_params`` on ``device``, where
+    ``generator`` lives) and zero moments in ``cfg.opt_state_dtype``."""
+    params = get_model(cfg).init_params(generator, cfg, device=device).trainable()
+    return adamw_init(params, getattr(torch, cfg.opt_state_dtype))
+
+
 def make_prefill_step(cfg: ArchConfig, *, max_len: int | None = None,
                       attn_impl: str | None = None):
     """(params, batch) -> (last-position logits, cache).
@@ -117,4 +197,5 @@ def make_serve_step(cfg: ArchConfig):
     return serve_step
 
 
-__all__ = ["Model", "float32_split_k_sums", "get_model", "make_batch", "make_prefill_step", "make_serve_step"]
+__all__ = ["Model", "float32_split_k_sums", "get_model", "init_state", "loss_and_grads",
+           "make_batch", "make_prefill_step", "make_serve_step", "make_train_step"]

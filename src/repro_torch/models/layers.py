@@ -22,8 +22,9 @@ What is left out, and why:
   * the ``shard()`` constraints of ``repro/models/sharding.py``: one card has
     no mesh, so they are omitted, and ``native_out`` (bf16 partial sums
     under tensor parallelism) has nothing to act on;
-  * ``_sharded_lse_decode`` and MoE, Mamba2, mLSTM and sLSTM, which wait for
-    the slices that port those families.
+  * ``_sharded_lse_decode`` (a ``decode_attn="sharded_lse"`` config decodes
+    locally, as JAX does with no mesh) and MoE, Mamba2, mLSTM and sLSTM,
+    which wait for the slices that port them.
 
 :func:`attention_decode` writes the new key and value into the cache in
 place; JAX returns updated copies (aliased to donated buffers).
@@ -40,6 +41,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import visible_mask
 
 Params = Mapping[str, torch.Tensor]
+DECODE_ATTN = ("auto", "local", "sharded_lse")
 _NEG = -1e30
 _F32 = torch.float32
 
@@ -233,7 +235,15 @@ def attention_decode(
 ):
     """One query token against the cache: returns (y, cache_k, cache_v),
     the caches being the same tensors, with the new key and value written
-    at ``pos`` (self-attention)."""
+    at ``pos`` (self-attention).
+
+    ``cfg.decode_attn`` may be ``auto``, ``local`` or ``sharded_lse``; any
+    other value raises.  All three take the local path here: JAX takes its
+    sharded path (``_sharded_lse_decode``, flash-decoding over a
+    sequence-sharded cache) only under an active mesh, and the port has no
+    mesh; that path waits for the multi-card slice (ROADMAP A7c)."""
+    if getattr(cfg, "decode_attn", "auto") not in DECODE_ATTN:
+        raise ValueError(f"decode_attn {cfg.decode_attn!r} is not one of {DECODE_ATTN}")
     b = x_t.shape[0]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     q = _split_heads(dot(x_t, p["wq"]), hq, hd)          # (B,1,Hq,Dh)

@@ -15,6 +15,13 @@ writes the new token's at ``pos`` and returns the same dict with ``pos``
 advanced (JAX returns a new cache built in a donated buffer).  Both run
 under ``torch.inference_mode()``.
 
+Training: :func:`train_loss` is JAX's mean next-token cross-entropy, run
+outside inference mode through a differentiable :func:`_run_blocks`
+(``cfg.remat`` checkpoints each block, and each group of
+``n_layers / scan_groups`` blocks, with ``torch.utils.checkpoint``, as JAX
+nests ``jax.checkpoint``).  Parameters are created frozen; a trainer calls
+:meth:`DecoderLM.trainable` (``models.api.init_state`` does).
+
 MoE blocks and the vision / audio stub frontends wait for later slices.
 """
 
@@ -25,6 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -54,6 +62,38 @@ class DecoderLM(nn.Module):
         """Layer ``i``'s block tensors (views of the stacked ones)."""
         return {name: t[i] for name, t in self.blocks.items()}
 
+    def layers(self) -> list[dict[str, torch.Tensor]]:
+        """Every layer's block tensors, from one ``unbind`` of each stacked
+        tensor: under autograd the layers' gradients are stacked once, where
+        ``layer(i)`` would add a full-size gradient for each layer."""
+        per_name = {name: t.unbind(0) for name, t in self.blocks.items()}
+        return [{name: ts[i] for name, ts in per_name.items()}
+                for i in range(len(next(iter(per_name.values()))))]
+
+    def trainable(self) -> "DecoderLM":
+        """Let every parameter require grad (in place); returns ``self``."""
+        for p in self.parameters():
+            p.requires_grad_(True)
+        return self
+
+    def tensors(self) -> dict[str, torch.Tensor]:
+        """The parameters by dotted name (``embed``, ``blocks.wq``, ...,
+        ``ln_f``, ``lm_head``), the flat form gradients and optimizer
+        moments take."""
+        return dict(self.named_parameters())
+
+    @classmethod
+    def from_tensors(cls, named: dict[str, torch.Tensor]) -> "DecoderLM":
+        """The inverse of :meth:`tensors` (frozen parameters)."""
+        tree: dict = {"blocks": {}}
+        for name, t in named.items():
+            head, _, rest = name.partition(".")
+            if rest:
+                tree[head][rest] = t
+            else:
+                tree[head] = t
+        return cls(tree)
+
 
 def _check_dense(cfg) -> None:
     if cfg.n_experts:
@@ -82,8 +122,10 @@ def init_params(generator: torch.Generator, cfg, device=None) -> DecoderLM:
     hq, hkv, hd, n = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.n_layers
 
     def normal(*shape, scale=0.02):
+        # scaled in place: one float32 draw alive at a time (nemotron's
+        # (18 432, 256 000) lm_head is 18.9 GB in float32)
         t = torch.randn(shape, generator=generator, dtype=_F32, device=dev)
-        return (t * scale).to(dtype)
+        return t.mul_(scale).to(dtype)
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=dev)
@@ -135,6 +177,60 @@ def _logits(params: DecoderLM, x: torch.Tensor, cfg) -> torch.Tensor:
 
 def _block_tail(x: torch.Tensor, bp, cfg) -> torch.Tensor:
     return x + L.mlp(L.rms_norm(x, bp["ln2"]), bp, cfg)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _block(x: torch.Tensor, bp, cfg, positions: torch.Tensor) -> torch.Tensor:
+    h = L.attention_train(L.rms_norm(x, bp["ln1"]), bp, cfg, positions=positions)
+    return _block_tail(x + h, bp, cfg)
+
+
+def _run_blocks(x: torch.Tensor, params: DecoderLM, cfg,
+                positions: torch.Tensor) -> torch.Tensor:
+    """The blocks in order, differentiable.  With ``cfg.remat`` each block
+    runs under ``checkpoint`` (its activations recomputed in the backward)
+    and, when ``scan_groups`` > 1 divides ``n_layers``, so does each group
+    of ``n_layers / scan_groups`` blocks around them: JAX's two-level remat
+    scan.  Remat changes memory, not values.  ``remat_policy`` names which
+    activations JAX saves inside a checkpoint; the port recomputes all."""
+    layers = params.layers()
+    if cfg.remat:
+        block = lambda h, bp: checkpoint(_block, h, bp, cfg, positions, use_reentrant=False)
+    else:
+        block = lambda h, bp: _block(h, bp, cfg, positions)
+
+    def run(h, group):
+        for bp in group:
+            h = block(h, bp)
+        return h
+
+    g = max(1, cfg.scan_groups)
+    if g > 1 and cfg.n_layers % g == 0:
+        k = cfg.n_layers // g
+        for start in range(0, cfg.n_layers, k):
+            group = layers[start:start + k]
+            x = (checkpoint(run, x, group, use_reentrant=False) if cfg.remat
+                 else run(x, group))
+        return x
+    return run(x, layers)
+
+
+def train_loss(params: DecoderLM, batch, cfg) -> torch.Tensor:
+    """Mean next-token cross-entropy over text positions, from float32
+    logits (the padded vocabulary masked as in :func:`_logits`)."""
+    x, prefix = _embed_sequence(params, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _run_blocks(x, params, cfg, positions)
+    x = L.rms_norm(x, params["ln_f"])
+    logits = _logits(params, x, cfg)                       # (B, S_total, V) f32
+    pred = logits[:, prefix:][:, :-1]
+    tgt = batch["tokens"][:, 1:].long()
+    lse = torch.logsumexp(pred, dim=-1)
+    true = torch.gather(pred, -1, tgt[..., None])[..., 0]
+    return torch.mean(lse - true)
 
 
 # ---------------------------------------------------------------------------
@@ -194,4 +290,4 @@ def decode_step(params: DecoderLM, batch, cache: dict, cfg):
     return logits, cache
 
 
-__all__ = ["DecoderLM", "decode_step", "init_cache", "init_params", "prefill"]
+__all__ = ["DecoderLM", "decode_step", "init_cache", "init_params", "prefill", "train_loss"]

@@ -313,7 +313,7 @@ class CodedDataParallelExecutor:
         # Degraded (partial) rounds serve the layer-1 prefix of every shard;
         # the gradient estimate still averages over all k shards, flagged
         # by the outcome.
-        shards = _split_batch(batch, cfg.k)
+        shards = split_batch(batch, cfg.k)
         grads = None
         for j in range(cfg.k):
             g = self.grad_fn(params, shards[j])          # computed by copy owner
@@ -325,7 +325,7 @@ class CodedDataParallelExecutor:
         return self.successes / max(self.rounds, 1)
 
 
-def _split_batch(batch: dict, k: int) -> list[dict]:
+def split_batch(batch: dict, k: int) -> list[dict]:
     """A dict of (b, ...) tensors -> k dicts of (b/k, ...) shards."""
     def split(x):
         b = x.shape[0]
@@ -337,4 +337,4 @@ def _split_batch(batch: dict, k: int) -> list[dict]:
     return [{name: x[j] for name, x in stacked.items()} for j in range(k)]
 
 
-__all__ = ["OUTCOMES", "CodedDPConfig", "CodedDataParallelExecutor"]
+__all__ = ["OUTCOMES", "CodedDPConfig", "CodedDataParallelExecutor", "split_batch"]

@@ -707,3 +707,58 @@ def test_cost_rows_on_the_card_count_each_b1_launch(cuda_device):
         assert 0 < costs.kernel_flops <= costs.other_flops, name
         row = hlo_cost.cost_row(name, costs)
         assert row["collective_bytes"] == 0 and row["flops"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv", [(24, 8), (32, 4)], ids=["llama3.2-3b", "yi-9b"])
+def test_flash_attention_at_the_dense_family_gqa_groups(cuda_device, hq, hkv):
+    """B6 at llama3.2-3b's GQA groups of 3 and yi-9b's of 8 (D = 128, bf16,
+    causal, 2048 tokens: the wgmma route) within the bf16 bound of
+    ``test_flash_attention_kernel_matches_plain_version``."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=cuda_device).manual_seed(hq)
+    q, k, v = (torch.randn((1, 2048, h, 128), generator=gen, device=cuda_device)
+               .to(torch.bfloat16).transpose(1, 2) for h in (hq, hkv, hkv))
+    before = fa.launch_counts()["flash_attention_cuda"]
+    got = fa.flash_attention(q, k, v, causal=True)
+    assert fa.launch_counts()["flash_attention_cuda"] == before + 1
+    assert fa.flash_route(q.dtype, 128) == "wgmma"
+    want = fa.flash_attention_ref(q, k, v, causal=True)
+    bound = FLASH_EPS[torch.bfloat16] * (v.float().abs().amax() + want.float().abs())
+    assert bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+def test_flash_attention_under_grad_raises_on_the_card(cuda_device):
+    """The card's output has no ``grad_fn``: a gradient would skip attention,
+    so the call raises before launching."""
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.randn((1, 4, 64, 128), device=cuda_device, dtype=torch.bfloat16,
+                    requires_grad=True)
+    k = v = torch.randn((1, 2, 64, 128), device=cuda_device, dtype=torch.bfloat16)
+    before = fa.launch_counts()["flash_attention_cuda"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(q, k, v)
+    assert fa.launch_counts()["flash_attention_cuda"] == before
+    with torch.no_grad():
+        assert fa.flash_attention(q, k, v).shape == q.shape
+
+
+@pytest.mark.cuda
+def test_full_width_qwen3_train_step_on_the_card(cuda_device):
+    """One ``make_train_step`` step of ``qwen3_0_6b`` at full width (remat,
+    bf16 parameters, float32 moments, 4 microbatches) on 2 x 512 tokens:
+    a finite loss near ln(vocab) at random init, and the parameters move."""
+    import math
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.models import api
+    cfg = get_config("qwen3_0_6b", microbatch=2)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    state = api.init_state(cfg, gen, device=cuda_device)
+    before = state.params["embed"].detach().clone()
+    batch = api.make_batch(cfg, ShapeCell("t", 512, 2, "train"), gen, device=cuda_device)
+    state, metrics = api.make_train_step(cfg)(state, batch)
+    loss = float(metrics["loss"])
+    assert math.isfinite(loss) and abs(loss - math.log(cfg.vocab_size)) < 1.0
+    assert math.isfinite(float(metrics["grad_norm"])) and int(state.step) == 1
+    assert not torch.equal(state.params["embed"].detach(), before)

@@ -1,7 +1,9 @@
 """The LM serving path of the port against the JAX package, on the CPU.
 
-``qwen3_0_6b``'s SMOKE config (float32, 2 layers, GQA 4 over 2 heads,
-qk-norm) with the JAX ``init_params(PRNGKey(0))`` tree carried over by
+Each dense config's SMOKE config (float32, 2 layers; qwen3: GQA 4 over 2
+heads with qk-norm, llama3.2: 6 over 2, yi: 4 over 2 with
+``decode_attn="sharded_lse"``, nemotron-4: 6 over 2 with a squared-ReLU MLP)
+with the JAX ``init_params(PRNGKey(0))`` tree carried over by
 ``convert.lm_params``: the layers, the prefill logits and KV cache for each
 ``attn_impl`` and four cached decode steps must match JAX within float32
 round-off (rtol and atol 1e-5, on logits of order 0.5 and on the cache),
@@ -16,28 +18,34 @@ import numpy as np
 import pytest
 import torch
 
+import importlib
+
 from repro.configs import base as jbase
-from repro.configs import qwen3_0_6b as jqwen
 from repro.models import api as japi
 from repro.models import layers as JL
 from repro_torch import convert
 from repro_torch.configs import base as tbase
-from repro_torch.configs import qwen3_0_6b as tqwen
 from repro_torch.models import api, layers, lm
 
 TOL = 1e-5
 IMPLS = ("ref", "blockwise", "flash")
+ARCHS = ("qwen3_0_6b", "llama3_2_3b", "yi_9b", "nemotron_4_340b")
 B, S, MAX_LEN = 2, 12, 16
 
 
-@pytest.fixture(scope="module")
-def jcfg():
-    return jbase.get_smoke_config("qwen3_0_6b")
+@pytest.fixture(scope="module", params=ARCHS)
+def arch(request):
+    return request.param
 
 
 @pytest.fixture(scope="module")
-def cfg():
-    return tbase.get_smoke_config("qwen3_0_6b")
+def jcfg(arch):
+    return jbase.get_smoke_config(arch)
+
+
+@pytest.fixture(scope="module")
+def cfg(arch):
+    return tbase.get_smoke_config(arch)
 
 
 @pytest.fixture(scope="module")
@@ -65,15 +73,20 @@ def jax_prefills(jcfg, jparams, tokens):
     return out
 
 
-def test_configs_are_the_jax_package_numbers():
-    for name in ("CONFIG", "SMOKE"):
-        assert dataclasses.asdict(getattr(tqwen, name)) == dataclasses.asdict(getattr(jqwen, name))
-    assert set(tbase.list_configs()) <= set(jbase.list_configs())
-    assert tbase.get_config("qwen3-0.6b", attn_impl="flash").attn_impl == "flash"
+@pytest.mark.parametrize("name", ARCHS)
+def test_configs_are_the_jax_package_numbers(name):
+    mine = importlib.import_module(f"repro_torch.configs.{name}")
+    theirs = importlib.import_module(f"repro.configs.{name}")
+    for which in ("CONFIG", "SMOKE"):
+        assert dataclasses.asdict(getattr(mine, which)) == dataclasses.asdict(getattr(theirs, which))
+    assert set(tbase.list_configs()) == set(ARCHS) and set(ARCHS) <= set(jbase.list_configs())
+    dashed = getattr(theirs, "CONFIG").name
+    assert tbase.get_config(dashed, attn_impl="flash").attn_impl == "flash"
+    assert tbase.get_config(name).n_params() == jbase.get_config(name).n_params()
     assert tbase.SHAPE_CELLS == {k: tbase.ShapeCell(**dataclasses.asdict(v))
                                  for k, v in jbase.SHAPE_CELLS.items()}
-    with pytest.raises(ValueError, match="yi_9b"):
-        tbase.get_config("yi_9b")
+    with pytest.raises(ValueError, match="mixtral_8x22b"):
+        tbase.get_config("mixtral_8x22b")
 
 
 def test_unported_families_raise(cfg):
@@ -243,3 +256,21 @@ def test_step_functions_sum_bf16_split_k_in_float32_and_restore_the_flag(cfg, mo
         assert seen == [False, False, False]
     finally:
         flags.allow_bf16_reduced_precision_reduction = saved
+
+
+@pytest.mark.parametrize("mode", ["auto", "local", "sharded_lse", "ring"])
+def test_decode_attn_sharded_lse_decodes_locally(mode, cfg, params, tokens):
+    """yi's ``decode_attn="sharded_lse"`` takes the local path, as JAX does
+    with no mesh: the same logits, bit for bit, as ``auto``; any other value
+    raises."""
+    prefill = api.make_prefill_step(cfg, max_len=MAX_LEN)
+    nxt = {"next_token": torch.from_numpy(tokens[:, 0])}
+    want, _ = api.make_serve_step(cfg)(params, prefill(params, {"tokens": torch.from_numpy(tokens)})[1], nxt)
+    mode_cfg = dataclasses.replace(cfg, decode_attn=mode)
+    cache = prefill(params, {"tokens": torch.from_numpy(tokens)})[1]
+    if mode == "ring":
+        with pytest.raises(ValueError, match="decode_attn"):
+            api.make_serve_step(mode_cfg)(params, cache, nxt)
+        return
+    got, _ = api.make_serve_step(mode_cfg)(params, cache, nxt)
+    assert torch.equal(got, want)
