@@ -82,15 +82,18 @@ Phases, one line each (any failure raises and exits non-zero):
      decode-aligned Sq = 16 < Sk = 2048, Sq > Sk with rows that must be 0,
      and the Mixtral attention widths (48 over 8 heads, 4096 tokens) with a
      1024-token window, and the head widths of the repo's other configs
-     (phi-3-vision 96, zamba2 112, nemotron-4 and xLSTM 192) and D = 40;
+     (phi-3-vision 96, zamba2 112, nemotron-4 192), float32 at D = 192 and
+     D = 40, and phase 17's prefills (olmoe's (4, 16, 2048, 128) over 16,
+     mixtral's (1, 48, 6144, 128) over 8 with its 4096-token window,
+     zamba2's (4, 32, 2048, 112) over 32);
      each line names the route its dtype and D take (wgmma, mma or ffma) and
      the instantiation that ran; inputs are the (B, H, S, D) views of (B, S, H, D)
      tensors, as the layer passes them.  bf16 and fp16 within
      eps max|v| + eps |ref| elementwise, eps the type's rounding unit (2^-8,
      2^-11: P rounded to the input type for P V, and the output's
      rounding), float32 within 1e-5 (P |V|); each timed beside its plain
-     version, its bound and, where Sq = Sk and no window,
-     ``scaled_dot_product_attention``; then Sk = 0 on every route must give
+     version, its bound and, where Sq = Sk, ``scaled_dot_product_attention``
+     (a window given as a boolean mask); then Sk = 0 on every route must give
      zeros;
  10. the LM serving path at full width: ``qwen3_0_6b`` (28 layers, d_model
      1024, vocab 151 936, already a multiple of the 128 it pads to, bf16,
@@ -204,6 +207,25 @@ Phases, one line each (any failure raises and exits non-zero):
      per coded-DP round (counted over both runs); a 2-step ``--compress
      int8`` run with finite losses; then one ``make_train_step`` step timed
      (ms, tokens/s, peak memory) and profiled (idle share).
+
+  17. the MoE, hybrid and xLSTM families served at full width, each as
+     phase 15 serves its configs (``serve_config``): ``olmoe_1b_7b`` (16
+     layers, 64 experts top-8, qk-norm, MHA 16 over 16) on 4 prompts of 2048
+     tokens and 16 decode steps; ``mixtral_8x22b`` at full width with 2 of
+     its 56 layers (the only cut: the whole model is 140.6 B parameters) on
+     1 prompt of 6144 tokens, past its 4096-token window, and 8 steps;
+     ``zamba2_7b`` (81 Mamba2 layers, the shared block applied 14 times:
+     13 groups of 6 and a tail of 3) and ``xlstm_125m`` (12 blocks, sLSTM at
+     3 and 9) on 4 x 2048 tokens and 16 steps.  B6 must launch
+     ``api.attention_calls(cfg)`` times a prefill (16, 2, 14, 0) and not in
+     decode; every logit finite; the flash prefill against float32 as in
+     phase 15, and xLSTM's bf16 prefill within ``bf16_bound``; two decode
+     steps against fresh prefills, for MoE only on the batch rows where
+     neither prefill dropped a route past capacity (counted per row by
+     ``MoeDrops``; at least one row held each step); each line gives the
+     times, peak memory, B6's route and launches, and the routes dropped in
+     the main prefill, ``n_attn_apps`` or the sLSTM steps, and a profiled
+     prefill and 8 decode steps (idle share, top kernels).
 
 It then prints the kernels' JSON record, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  It writes no file outside a temporary
@@ -891,6 +913,7 @@ def check_flash_kernel() -> dict:
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                       flash_attention_ref, flash_route,
                                                       head_dim_instance)
+    from repro_torch.kernels.flash_attention.ref import visible_mask
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(9)
@@ -918,7 +941,13 @@ def check_flash_kernel() -> dict:
         ("llama3.2-3b gqa 24/8", 4, 24, 8, 2048, 2048, 128, bf16, True, None, False),
         ("yi-9b gqa 32/4", 4, 32, 4, 2048, 2048, 128, bf16, True, None, False),
         ("nemotron-4 d192 fp16", 1, 96, 8, 1024, 1024, 192, f16, True, None, False),
-        ("xlstm d192 f32", 1, 4, 4, 2048, 2048, 192, f32, True, None, False),
+        # the FFMA route at D = 192 (no config runs float32 attention there)
+        ("float32 d192", 1, 4, 4, 2048, 2048, 192, f32, True, None, False),
+        # phase 17's prefills: olmoe's MHA with qk-norm, mixtral past its own
+        # 4096-token window, zamba2's shared block (D = 112, the mma route)
+        ("olmoe-1b-7b mha 16/16", 4, 16, 16, 2048, 2048, 128, bf16, True, None, False),
+        ("mixtral-8x22b window 4096", 1, 48, 8, 6144, 6144, 128, bf16, True, 4096, False),
+        ("zamba2-7b d112 batch 4", 4, 32, 32, 2048, 2048, 112, bf16, True, None, False),
         ("d40, the next instantiation up", 2, 8, 8, 1000, 1000, 40, bf16, True, None, False),
     ]
     record = {}
@@ -950,9 +979,12 @@ def check_flash_kernel() -> dict:
         ms = time_ms(run)
         plain_ms = time_ms(plain, warm=1, runs=3)
         library_ms = None
+        sdpa = torch.nn.functional.scaled_dot_product_attention
         if sq == sk and window is None:
-            sdpa = torch.nn.functional.scaled_dot_product_attention
             library_ms = time_ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True))
+        elif sq == sk:     # the window as a boolean mask
+            mask = visible_mask(range(sq), sq, sk, causal, window, q.device)
+            library_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True))
         pairs = visible_pairs(sq, sk, causal, window)
         moved = q.element_size() * (2 * b * hq * sq * d + 2 * b * hkv * sk * d)
         b_ms, b_by = _bound(moved, 4 * d * pairs * b * hq,
@@ -997,35 +1029,77 @@ def timed(fn):
 
 class Float32Layers:
     """A float32 evaluation of bf16 parameters: each tensor upcast when the
-    forward reads it (a layer at a time), so the reference needs one layer's
-    float32 copy, not the model's (yi-9b's would be 35 GB, nemotron-4's
-    65 GB).  The values are those of a float32 copy of the model."""
+    forward reads it, a layer (``layer(i)``: a decoder or Mamba2 layer, an
+    xLSTM block) or a block (``params["shared"]``, the hybrid's shared
+    attention + MLP) at a time, so the reference needs that much float32,
+    not the model's (yi-9b's would be 35 GB, nemotron-4's 65 GB).  The values
+    are those of a float32 copy of the model."""
 
     def __init__(self, params):
         self.params = params
 
     def __getitem__(self, name: str):
         t = self.params[name]
-        return None if t is None else t.float()
+        if t is None or isinstance(t, torch.Tensor):
+            return None if t is None else t.float()
+        return {k: v.float() for k, v in t.items()}
 
     def layer(self, i: int) -> dict:
         return {name: t.float() for name, t in self.params.layer(i).items()}
+
+
+def bf16_bound(ref_logits: torch.Tensor, cfg) -> float:
+    """The bound phase 17 holds xLSTM's bf16 prefill to, against a float32
+    evaluation of the same weights (it has no attention, so no flash / dense
+    pair): 2^-8, bf16's unit roundoff, for a rounding of the residual stream
+    in each block and one in the head, added in the worst case, times the
+    largest logit.  ``tests/test_torch_zoo.py``
+    (``test_xlstm_bf16_prefill_meets_the_stated_bound``) holds the JAX
+    package's bf16 xLSTM and the port's to the same rule on the CPU."""
+    return 2.0 ** -8 * (cfg.n_layers + 1) * float(ref_logits.abs().max())
+
+
+class MoeDrops:
+    """While active (``with``), counts each MoE call's routes dropped past
+    capacity, per batch row, over the calls: it recomputes the routing from
+    the call's own input (``layers.moe_routes``) and then calls the port's
+    unchanged ``layers.moe``.  Used only by the decode check, never in a
+    timed run."""
+
+    def __init__(self, batch: int):
+        self.rows = torch.zeros(batch, dtype=torch.int64, device="cuda")
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self._layers, self._moe = L, L.moe
+
+        def counted(x, p, cfg):
+            self.rows += (~L.moe_routes(x, p, cfg).keep).sum(-1)
+            return self._moe(x, p, cfg)
+
+        L.moe = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._layers.moe = self._moe
 
 
 def serve_config(name: str, *, batch: int, prompt: int, steps: int, checked_steps,
                  seed: int, tag: str, profile: bool = False, **overrides) -> int:
     """One config's serving path at full width (``overrides`` may cut its
     depth); returns B6's launches in the main path's run (one flash prefill
-    and the decode steps).  Phase 10 (qwen3) and phase 15 (the rest of the
-    dense family) run it."""
+    and the decode steps).  Phase 10 (qwen3), phase 15 (the rest of the
+    dense family) and phase 17 (MoE, hybrid, xLSTM) run it."""
     import dataclasses
     import gc
 
     from repro_torch.configs import ShapeCell, get_config
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import api
+    from repro_torch.models import api, hybrid, xlstm
+    from repro_torch.models.layers import moe_capacity
 
     cfg = get_config(name, attn_impl="flash", **overrides)
+    expected = api.attention_calls(cfg)       # B6's launches a flash prefill
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     params = api.get_model(cfg).init_params(gen, cfg, device="cuda")
@@ -1064,70 +1138,115 @@ def serve_config(name: str, *, batch: int, prompt: int, steps: int, checked_step
     if torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction != flag:
         raise AssertionError("a step function left the bf16 split-K flag changed")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    if launches_prefill != cfg.n_layers or launches != cfg.n_layers:
+    if launches_prefill != expected or launches != expected:
         raise AssertionError(f"{name}: B6 launched {launches_prefill} times in the prefill "
-                             f"and {launches} in all, not once per layer ({cfg.n_layers})")
-    # 4. every logit finite
+                             f"and {launches} in all, not {expected} (attention_calls)")
+    # every logit finite
     if not all(bool(torch.isfinite(t).all()) for t in (first_logits, *kept.values())):
         raise AssertionError(f"{name}: non-finite logits on the serving path")
     del cache
     torch.cuda.empty_cache()
 
-    # 2. flash vs dense, against a float32 evaluation of the model: the kernel
-    #    must be no less accurate than the plain attention it replaces
-    dense = api.make_prefill_step(cfg, max_len=prompt + steps, attn_impl="ref")
-    dense_logits, dense_s = timed(lambda: dense(params, {"tokens": tokens})[0])
-    torch.cuda.empty_cache()
+    # flash vs dense, against a float32 evaluation of the model: the kernel
+    # must be no less accurate than the plain attention it replaces.  xLSTM
+    # runs no attention: its bf16 prefill is held to bf16_bound instead.
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     ref32 = api.make_prefill_step(cfg32, max_len=prompt, attn_impl="ref")
     want = ref32(Float32Layers(params), {"tokens": tokens})[0]
     torch.cuda.empty_cache()
     real = slice(0, cfg.vocab_size)
     err_flash = float((first_logits[:, real] - want[:, real]).abs().max())
-    err_dense = float((dense_logits[:, real] - want[:, real]).abs().max())
-    if not err_flash <= 1.5 * err_dense + 5e-3:
-        raise AssertionError(f"{name}: flash prefill max|err| {err_flash} vs float32, dense "
-                             f"bf16 {err_dense}: above 1.5 x dense + 5e-3")
+    dense_s = None
+    if expected:
+        dense = api.make_prefill_step(cfg, max_len=prompt + steps, attn_impl="ref")
+        dense_logits, dense_s = timed(lambda: dense(params, {"tokens": tokens})[0])
+        torch.cuda.empty_cache()
+        err_dense = float((dense_logits[:, real] - want[:, real]).abs().max())
+        del dense_logits
+        if not err_flash <= 1.5 * err_dense + 5e-3:
+            raise AssertionError(f"{name}: flash prefill max|err| {err_flash} vs float32, "
+                                 f"dense bf16 {err_dense}: above 1.5 x dense + 5e-3")
+    else:
+        err_dense = err_flash
+        if not err_flash <= bf16_bound(want[:, real], cfg):
+            raise AssertionError(f"{name}: bf16 prefill max|err| {err_flash} vs float32 above "
+                                 f"{bf16_bound(want[:, real], cfg)} (bf16_bound)")
 
-    # 3. decode vs prefill: step t's logits against a fresh flash prefill over
-    #    the prompt and the t + 1 tokens fed so far.  Both are bf16 evaluations
-    #    of the same function, each about err_dense from float32, so they may
-    #    differ by twice that; 0.02 covers the max over other positions.
+    # decode vs prefill: step t's logits against a fresh flash prefill over
+    # the prompt and the t + 1 tokens fed so far.  Both are bf16 evaluations
+    # of the same function, each about err_dense from float32, so they may
+    # differ by twice that; 0.02 covers the max over other positions.  MoE:
+    # a prefill may drop routes past capacity (a decode step never does), and
+    # through attention a drop at any position reaches the newest token; so
+    # only rows where neither prefill dropped a route are held, and at least
+    # one must be.
     tol = 2 * err_dense + 0.02
     generated = torch.stack(fed, dim=1)                 # (B, steps)
+    moe = bool(cfg.n_experts)
+    drops_main = None
+    if moe:
+        with MoeDrops(batch) as counter:
+            prefill(params, {"tokens": tokens})
+        drops_main = counter.rows.tolist()
     before = fa.launch_counts()["flash_attention_cuda"]
-    worst = 0.0
+    worst, held, skipped = 0.0, {}, {}
     for t, got in kept.items():
         prefix = torch.cat([tokens, generated[:, :t + 1]], dim=1)
-        fresh = api.make_prefill_step(cfg, max_len=prefix.shape[1])(params, {"tokens": prefix})[0]
-        diff = float((got[:, real] - fresh[:, real]).abs().max())
+        fresh_step = api.make_prefill_step(cfg, max_len=prefix.shape[1])
+        with MoeDrops(batch) as counter:
+            fresh = fresh_step(params, {"tokens": prefix})[0]
+        rows = list(range(batch))
+        if moe:
+            fresh_drops = counter.rows.tolist()
+            skipped[t] = {r: drops_main[r] + fresh_drops[r] for r in rows
+                          if drops_main[r] or fresh_drops[r]}
+            rows = [r for r in rows if r not in skipped[t]]
+            if not rows:
+                raise AssertionError(f"{name}: decode step {t}: every row dropped routes "
+                                     f"in a prefill ({skipped[t]}); no row left to hold")
+        held[t] = rows
+        diff = float((got[rows][:, real] - fresh[rows][:, real]).abs().max())
         worst = max(worst, diff)
         if not diff <= tol:
-            raise AssertionError(f"{name}: decode step {t}: max|decode - prefill| {diff} > {tol}")
-    if fa.launch_counts()["flash_attention_cuda"] - before != cfg.n_layers * len(kept):
-        raise AssertionError(f"{name}: a fresh prefill did not launch B6 once per layer")
+            raise AssertionError(f"{name}: decode step {t}: max|decode - prefill| {diff} > {tol}"
+                                 f" over rows {rows}")
+    if fa.launch_counts()["flash_attention_cuda"] - before != expected * len(kept):
+        raise AssertionError(f"{name}: a fresh prefill did not launch B6 {expected} times")
 
     lines = profile_serving(prefill, serve, params, tokens) if profile else {}
     full = get_config(name)
     cut = {f"{k}": f"{v} of {getattr(full, k)}" for k, v in overrides.items()}
+    family = {}
+    if moe:
+        family = dict(experts=f"{cfg.n_experts}top{cfg.top_k}",
+                      moe_capacity_prefill=moe_capacity(prompt, cfg),
+                      moe_dropped_main_by_row=json.dumps(drops_main),
+                      decode_rows_held=json.dumps(held),
+                      decode_rows_skipped_drops=json.dumps(skipped))
+    elif cfg.family == "hybrid":
+        family = dict(n_attn_apps=hybrid.n_attn_apps(cfg), tail_layers=hybrid.group_split(cfg)[1])
+    elif expected == 0:
+        family = dict(slstm_steps=prompt * xlstm.block_types(cfg).count("slstm"),
+                      bf16_bound=bf16_bound(want[:, real], cfg))
     log(tag, config=cfg.name, params=n_params, layers=cfg.n_layers,
         **({"cut": json.dumps(cut)} if cut else {}),
         d_model=cfg.d_model, heads=f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim_}",
         vocab=cfg.padded_vocab, dtype=cfg.dtype,
         batch=batch, prompt=prompt, decode_steps=steps,
-        prefill_ms=f"{prefill_s * 1e3:.3f}", dense_prefill_ms=f"{dense_s * 1e3:.3f}",
+        prefill_ms=f"{prefill_s * 1e3:.3f}",
+        dense_prefill_ms="none" if dense_s is None else f"{dense_s * 1e3:.3f}",
         prefill_tokens_per_s=f"{batch * prompt / prefill_s:.0f}",
         decode_ms_per_step=f"{decode_s / steps * 1e3:.3f}",
         decode_tokens_per_s=f"{batch * steps / decode_s:.1f}",
         peak_memory_gib=f"{peak_gib:.2f}", flash_launches=launches,
-        b6_route=fa.flash_route(params["embed"].dtype, cfg.head_dim_),
-        err_flash_vs_f32=err_flash, err_dense_vs_f32=err_dense,
+        b6_route=fa.flash_route(params["embed"].dtype, cfg.head_dim_) if expected else "none",
+        err_flash_vs_f32=err_flash, err_dense_vs_f32=err_dense if expected else "none",
         decode_vs_prefill_max=worst, decode_vs_prefill_tol=tol,
-        checked_steps=json.dumps(list(kept)), bf16_split_k_flag_outside_steps=flag,
-        gpu=json.dumps(nvidia_smi_line()))
+        checked_steps=json.dumps(list(kept)), **family,
+        bf16_split_k_flag_outside_steps=flag, gpu=json.dumps(nvidia_smi_line()))
     for part, line in lines.items():
         log(f"{tag}_profile", part=part, **line)
-    del params, first_logits, kept, logits, dense_logits, want, fresh
+    del params, first_logits, kept, logits, want, fresh
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -1152,6 +1271,24 @@ def dense_serve() -> int:
     for seed, (name, kw) in enumerate(runs, start=15):
         launches += serve_config(name, seed=seed, tag="dense_serve", **kw)
     log("dense_serve_path", b6_launches=launches, wall_s=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
+def zoo_serve() -> int:
+    """Phase 17: the MoE, hybrid and xLSTM families served at full width
+    (mixtral at 2 of its 56 layers, past its 4096-token window); returns
+    B6's launches over the four main paths (counts set to 0 before each and
+    summed)."""
+    t0 = time.perf_counter()
+    runs = [("olmoe_1b_7b", dict(batch=4, prompt=2048, steps=16, checked_steps=(0, 15))),
+            ("mixtral_8x22b", dict(batch=1, prompt=6144, steps=8, checked_steps=(0, 7),
+                                   n_layers=2)),
+            ("zamba2_7b", dict(batch=4, prompt=2048, steps=16, checked_steps=(0, 15))),
+            ("xlstm_125m", dict(batch=4, prompt=2048, steps=16, checked_steps=(0, 15)))]
+    launches = 0
+    for seed, (name, kw) in enumerate(runs, start=17):
+        launches += serve_config(name, seed=seed, tag="zoo_serve", profile=True, **kw)
+    log("zoo_serve_path", b6_launches=launches, wall_s=f"{time.perf_counter() - t0:.1f}")
     return launches
 
 
@@ -2617,6 +2754,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         launches_train = train_path(Path(tmp))
 
+    # -- phase 17: the MoE, hybrid and xLSTM families, served -------------------------
+    launches_zoo = zoo_serve()
+
     kernels = []
     launches = {"success_tails_cuda_w": launches_main["success_tails_cuda_w"],
                 "success_tails_cuda": launches_static["success_tails_cuda"],
@@ -2626,7 +2766,7 @@ def main() -> int:
                "coded": launches_coded, "serve": {"flash_attention_cuda": launches_lm},
                "faults": launches_faults, "serving": launches_serving, "obs": launches_obs,
                "speed": launches_speed, "dense_serve": {"flash_attention_cuda": launches_dense},
-               "train": launches_train}
+               "train": launches_train, "zoo_serve": {"flash_attention_cuda": launches_zoo}}
     for name, (source, replaces) in KERNELS.items():
         entry = record[name]
         kernels.append({

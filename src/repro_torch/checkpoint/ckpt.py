@@ -13,7 +13,8 @@ written by either package restores into the other::
 A tree is a tensor, a dict (dotted keys stand for nested
 dicts, as the trainer's flat gradient and moment dicts do), a NamedTuple
 (``TrainState``) or a module with ``tensors()`` / ``from_tensors``
-(``models.lm.DecoderLM``); leaves are taken in JAX's order.
+(``models.lm.ParamTree``: the decoder LM, hybrid and xLSTM parameters);
+leaves are taken in JAX's order.
 
 Fault-tolerance contract:
   * the writer never leaves a half-written visible checkpoint (tmp + rename);
@@ -37,7 +38,10 @@ from repro_torch.optim.adamw import jax_order
 
 
 def _key(name: str) -> str:
-    return "".join(f"['{part}']" for part in name.split("."))
+    """JAX's ``keystr`` of a dotted name: ``['key']`` for a dict key, ``[i]``
+    for a tuple position (xLSTM's ``blocks.0.w_up``)."""
+    return "".join(f"[{part}]" if part.isdigit() else f"['{part}']"
+                   for part in name.split("."))
 
 
 def _named_leaves(tree, prefix: str = "") -> list[tuple[str, object]]:

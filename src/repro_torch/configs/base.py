@@ -160,8 +160,10 @@ SHAPE_CELLS: dict[str, ShapeCell] = {
     "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
 }
 
-# The architectures the port holds (the dense family); the JAX package lists ten.
-_ARCHS = ("qwen3_0_6b", "nemotron_4_340b", "yi_9b", "llama3_2_3b")
+# The architectures the port holds (the decoder-only LMs: dense, MoE, hybrid
+# and xLSTM); the JAX package lists ten, with whisper and phi-3-vision.
+_ARCHS = ("qwen3_0_6b", "nemotron_4_340b", "yi_9b", "llama3_2_3b", "zamba2_7b",
+          "mixtral_8x22b", "olmoe_1b_7b", "xlstm_125m")
 
 
 def list_configs() -> tuple[str, ...]:

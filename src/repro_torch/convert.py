@@ -2,7 +2,7 @@
 
 The JAX package's "weights" are its scenario batches, load parameters and
 estimator states, for the coded-computing half its encoded datasets, and
-for the LM zoo its parameter trees (:func:`lm_params`) and training states
+for the LM zoo its parameter trees (:func:`model_params`) and training states
 (:func:`train_state`).  Hand their leaves over as numpy arrays
 (``np.asarray`` of each JAX array) and :func:`to_torch` rebuilds the port's
 counterpart on a chosen device, so both packages run the same scenarios on
@@ -19,7 +19,8 @@ from repro_torch.core.coded_ops import CodedDataset, CodedDatasetModp
 from repro_torch.core.lagrange import CodeSpec
 from repro_torch.core.lea import EstimatorState, LoadParams, PoolLoad
 from repro_torch.device import resolve_device
-from repro_torch.models.lm import DecoderLM
+from repro_torch.models.api import get_model
+from repro_torch.models.lm import ParamTree
 from repro_torch.optim import TrainState
 from repro_torch.sweeps.registry import ScenarioBatch
 
@@ -103,37 +104,50 @@ def _lm_tensor(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(dev)
 
 
-def lm_params(np_params: dict, cfg, device=None) -> DecoderLM:
-    """The port's :class:`DecoderLM` from the JAX ``init_params`` tree of a
-    dense decoder LM given as numpy arrays (``jax.tree.map(np.asarray,
-    params)``): the same names, layouts and dtypes, tensor for tensor."""
+def _named(tree, prefix: str = "") -> dict:
+    """A JAX parameter tree's leaves by the port's dotted names: dict keys,
+    and tuple positions for xLSTM's ``blocks`` (``blocks.0.w_up``)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), t) for i, t in enumerate(tree))
+    else:
+        return {prefix: tree}
+    out = {}
+    for key, sub in items:
+        out.update(_named(sub, f"{prefix}.{key}" if prefix else str(key)))
+    return out
+
+
+def model_params(np_params: dict, cfg, device=None) -> ParamTree:
+    """The port's parameter module for ``cfg``'s family (as ``get_model``
+    dispatches: :class:`DecoderLM` for dense and MoE, :class:`HybridLM`,
+    :class:`XLSTMLM`) from the JAX ``init_params`` tree given as numpy
+    arrays (``jax.tree.map(np.asarray, params)``): the same names, layouts
+    and dtypes, tensor for tensor (bf16 through float32, exactly).  Names
+    and shapes are held to those the port's own ``init_params`` makes for
+    ``cfg`` (on the meta device); any difference raises ``ValueError``."""
     dev = resolve_device(device)
-    blocks = np_params["blocks"]
-    if "router" in blocks:
-        raise ValueError(f"{cfg.name}: MoE parameter trees are not ported yet")
-    want = {"embed": (cfg.padded_vocab, cfg.d_model), "ln_f": (cfg.d_model,),
-            "wq": (cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.head_dim_)}
-    got = {"embed": np.shape(np_params["embed"]), "ln_f": np.shape(np_params["ln_f"]),
-           "wq": np.shape(blocks["wq"])}
+    like = get_model(cfg).init_params(None, cfg, device="meta")
+    want = {name: tuple(t.shape) for name, t in like.tensors().items()}
+    leaves = _named(np_params)
+    got = {name: tuple(np.shape(a)) for name, a in leaves.items()}
     if got != want:
-        raise ValueError(f"{cfg.name}: parameter shapes {got} do not match the config {want}")
-    tree = {"embed": _lm_tensor(np_params["embed"], dev),
-            "blocks": {name: _lm_tensor(a, dev) for name, a in blocks.items()},
-            "ln_f": _lm_tensor(np_params["ln_f"], dev)}
-    if not cfg.tie_embeddings:
-        tree["lm_head"] = _lm_tensor(np_params["lm_head"], dev)
-    return DecoderLM(tree)
+        diff = sorted(set(got.items()) ^ set(want.items()))[:6]
+        raise ValueError(f"{cfg.name}: parameter names or shapes do not match the "
+                         f"config (first differences, given and expected: {diff})")
+    return type(like).from_tensors({name: _lm_tensor(a, dev) for name, a in leaves.items()})
 
 
 def train_state(np_state, cfg, device=None) -> TrainState:
     """The port's :class:`TrainState` from the JAX package's ``TrainState``
-    of a dense decoder LM given as numpy arrays: ``params``, ``m`` and ``v``
-    each through :func:`lm_params` (the moments keep their dtype, bf16 for
-    nemotron), the parameters made trainable, ``step`` an int32 0-d tensor."""
+    given as numpy arrays: ``params``, ``m`` and ``v`` each through
+    :func:`model_params` (the moments keep their dtype, bf16 for nemotron),
+    the parameters made trainable, ``step`` an int32 0-d tensor."""
     dev = resolve_device(device)
-    moment = lambda tree: lm_params(tree, cfg, dev).tensors()
+    moment = lambda tree: model_params(tree, cfg, dev).tensors()
     return TrainState(
-        params=lm_params(np_state.params, cfg, dev).trainable(),
+        params=model_params(np_state.params, cfg, dev).trainable(),
         m={name: t.detach() for name, t in moment(np_state.m).items()},
         v={name: t.detach() for name, t in moment(np_state.v).items()},
         step=torch.tensor(int(np.asarray(np_state.step)), dtype=torch.int32, device=dev),
@@ -156,5 +170,5 @@ def to_torch(obj, device=None):
     raise TypeError(f"no port counterpart for {type(obj).__name__}")
 
 
-__all__ = ["code_spec", "coded_dataset", "estimator_state", "lm_params",
-           "load_params", "pool_load", "scenario_batch", "to_torch", "train_state"]
+__all__ = ["code_spec", "coded_dataset", "estimator_state", "load_params",
+           "model_params", "pool_load", "scenario_batch", "to_torch", "train_state"]

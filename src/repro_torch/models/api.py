@@ -2,8 +2,10 @@
 functions (``repro/models/api.py``).
 
   * :func:`get_model`         — family -> (init_params, train_loss, prefill,
-                                decode_step, init_cache); the dense ``lm``
-                                family only;
+                                decode_step, init_cache): ``lm`` (dense and
+                                MoE), ``hybrid`` and ``xlstm``;
+  * :func:`attention_calls`   — full-sequence attention calls a prefill
+                                makes (B6's launches under ``flash``);
   * :func:`make_train_step`   — loss + grad + microbatch accumulation +
                                 AdamW; :func:`init_state` its state;
   * :func:`make_prefill_step` / :func:`make_serve_step` — serving;
@@ -29,7 +31,7 @@ from repro_torch.kernels.flash_attention.ops import NO_BACKWARD
 from repro_torch.optim import TrainState, adamw_init, adamw_update, cosine_warmup
 from repro_torch.runtime.fault_tolerance import split_batch
 
-from . import lm
+from . import hybrid, lm, xlstm
 
 
 class Model(NamedTuple):
@@ -40,25 +42,40 @@ class Model(NamedTuple):
     init_cache: Callable
 
 
+def _family(cfg: ArchConfig):
+    """The model module, in JAX's order: encoder-decoder, hybrid, xLSTM
+    (``ssm`` with ``d_ff == 0``), else the decoder LM.  Encoder-decoder and
+    the stub frontends raise ``NotImplementedError``: they come with the
+    second part of ROADMAP A7b."""
+    if cfg.is_encdec or cfg.frontend is not None:
+        family = "encoder-decoder" if cfg.is_encdec else f"{cfg.frontend} frontend"
+        raise NotImplementedError(
+            f"{cfg.name}: the {family} models are not ported yet; the second part "
+            "of ROADMAP A7b brings them")
+    if cfg.family == "hybrid":
+        return hybrid
+    if cfg.family == "ssm" and cfg.d_ff == 0:
+        return xlstm
+    return lm
+
+
 def get_model(cfg: ArchConfig) -> Model:
-    """The dense decoder LM; every other family raises
-    ``NotImplementedError`` naming what it waits for."""
-    if cfg.is_encdec:
-        family = "encoder-decoder"
-    elif cfg.family == "hybrid":
-        family = "hybrid (Mamba2 + shared attention)"
-    elif cfg.family == "ssm" and cfg.d_ff == 0:
-        family = "xLSTM"
-    elif cfg.n_experts:
-        family = "MoE"
-    elif cfg.frontend is not None:
-        family = f"{cfg.frontend} frontend"
-    else:
-        return Model(lm.init_params, lm.train_loss, lm.prefill, lm.decode_step,
-                     lm.init_cache)
-    raise NotImplementedError(
-        f"{cfg.name}: the {family} models are not ported yet; a later slice of "
-        "the LM zoo brings them (ROADMAP.md, Queue A)")
+    """The family's (init_params, train_loss, prefill, decode_step,
+    init_cache)."""
+    mod = _family(cfg)
+    return Model(mod.init_params, mod.train_loss, mod.prefill, mod.decode_step,
+                 mod.init_cache)
+
+
+def attention_calls(cfg: ArchConfig) -> int:
+    """Full-sequence attention calls one prefill makes, so B6's launches
+    under ``attn_impl="flash"``: one a layer for the decoder LM, one an
+    application of the shared block for the hybrid
+    (``hybrid.n_attn_apps``), none for xLSTM."""
+    mod = _family(cfg)
+    if mod is hybrid:
+        return hybrid.n_attn_apps(cfg)
+    return 0 if mod is xlstm else cfg.n_layers
 
 
 def make_batch(cfg: ArchConfig, cell: ShapeCell, generator: torch.Generator,
@@ -197,5 +214,5 @@ def make_serve_step(cfg: ArchConfig):
     return serve_step
 
 
-__all__ = ["Model", "float32_split_k_sums", "get_model", "init_state", "loss_and_grads",
+__all__ = ["Model", "attention_calls", "float32_split_k_sums", "get_model", "init_state", "loss_and_grads",
            "make_batch", "make_prefill_step", "make_serve_step", "make_train_step"]

@@ -1,10 +1,10 @@
-"""The dense-LM part of the JAX package's layer library
-(``repro/models/layers.py``), as plain functions on tensors.
+"""The JAX package's layer library (``repro/models/layers.py``) for the
+decoder-only LMs, as plain functions on tensors.
 
 Parameters are mappings of tensors under the JAX names and layouts: one
 layer's block tensors (``wq``, ``wk``, ``wv``, ``wo``, ``q_scale``,
-``k_scale``, ``w_gate``, ``w_up``, ``w_down``), weights as (in, out) applied
-as ``x @ w``.  Storage is in the config's dtype with float32 accumulation.
+``k_scale``, ``w_gate``, ``w_up``, ``w_down``, ``router``; Mamba2's
+``in_proj``, ``conv_w``, ...), weights as (in, out) applied as ``x @ w``.  Storage is in the config's dtype with float32 accumulation.
 Where JAX asks a bf16 x bf16 product for a float32 result
 (``preferred_element_type``), the port multiplies float32 copies of the
 bf16 operands: the products are exact in float32, so the result is JAX's up
@@ -17,14 +17,23 @@ Attention implementations, chosen by ``cfg.attn_impl`` as in JAX:
   * ``flash``     — the routed flash-attention kernel (B6): the CUDA kernel
                     for CUDA tensors, its plain version on the CPU.
 
+Sequence mixers and MoE, in plain PyTorch as the JAX package computes them
+in plain ``jnp`` / ``lax`` (no Pallas kernel): :func:`moe` (per-example
+capacity routing, batched over the examples), Mamba2 / SSD
+(:func:`mamba2_scan`, :func:`mamba2_decode`), mLSTM
+(:func:`mlstm_chunked`, :func:`mlstm_decode`) and sLSTM
+(:func:`slstm_scan`).  JAX's ``lax.scan`` over chunks and time steps is a
+Python loop here.
+
 What is left out, and why:
 
   * the ``shard()`` constraints of ``repro/models/sharding.py``: one card has
     no mesh, so they are omitted, and ``native_out`` (bf16 partial sums
     under tensor parallelism) has nothing to act on;
   * ``_sharded_lse_decode`` (a ``decode_attn="sharded_lse"`` config decodes
-    locally, as JAX does with no mesh) and MoE, Mamba2, mLSTM and sLSTM,
-    which wait for the slices that port them.
+    locally, as JAX does with no mesh) and ``_moe_ep`` (``moe_impl="ep"``
+    routes densely, as JAX does with no mesh); both wait for the multi-card
+    slice (ROADMAP A7c).
 
 :func:`attention_decode` writes the new key and value into the cache in
 place; JAX returns updated copies (aliased to donated buffers).
@@ -32,7 +41,8 @@ place; JAX returns updated copies (aliased to donated buffers).
 
 from __future__ import annotations
 
-from typing import Mapping
+import math
+from typing import Mapping, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -280,7 +290,7 @@ def attention_decode(
 
 
 # ---------------------------------------------------------------------------
-# MLPs
+# MLP
 # ---------------------------------------------------------------------------
 
 def mlp(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
@@ -297,5 +307,324 @@ def mlp(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
     raise ValueError(cfg.mlp_type)
 
 
-__all__ = ["attention_decode", "attention_train", "dot", "mlp", "rms_norm",
-           "rope", "silu"]
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+class MoeRoutes(NamedTuple):
+    """One :func:`moe` call's routing.  Each (B, S * k) tensor lists every
+    example's routes token by token (token t's k routes at t k .. t k + k - 1,
+    best expert first): ``gates`` (float32, renormalised over the k),
+    ``experts``, ``rank`` (the number of earlier routes to the same expert in
+    the example) and ``keep`` (rank < ``cap``, the per-example capacity)."""
+
+    gates: torch.Tensor
+    experts: torch.Tensor
+    rank: torch.Tensor
+    keep: torch.Tensor
+    cap: int
+
+
+def moe_capacity(s: int, cfg) -> int:
+    """Slots per expert for a call over ``s`` tokens: ceil(s k cf / E), at
+    least 1.  The call's own length sets it, so a prefill may drop routes
+    that a decode step (s = 1) never drops."""
+    return max(1, math.ceil(s * cfg.top_k * cfg.capacity_factor / cfg.n_experts))
+
+
+def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` on the last axis: ties go to the lower index
+    (a stable descending sort; ``torch.topk`` promises no order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_routes(x: torch.Tensor, p: Params, cfg) -> MoeRoutes:
+    """Token-choice top-k routing with per-example capacity, as the JAX
+    package's ``moe`` computes it: router logits in float32, softmax, top-k
+    (ties to the lower expert), gates renormalised, and each route ranked
+    among the example's earlier routes to its expert in token-major order."""
+    b, s, _ = x.shape
+    k = cfg.top_k
+    logits = dot(x, p["router"]).to(_F32)                  # (B,S,E)
+    gates, experts = _top_k(torch.softmax(logits, dim=-1), k)
+    gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    experts = experts.reshape(b, s * k)
+    onehot = F.one_hot(experts, cfg.n_experts)             # (B, S*k, E)
+    rank = torch.gather(torch.cumsum(onehot, dim=1) - onehot, 2, experts[..., None])[..., 0]
+    cap = moe_capacity(s, cfg)
+    return MoeRoutes(gates.reshape(b, s * k), experts, rank, rank < cap, cap)
+
+
+def moe(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
+    """Token-choice top-k MoE with per-example capacity (sort-free,
+    GShard-style): the JAX package's dense route, batched over the examples.
+
+    Each example's kept routes fill an (E, cap, d) buffer in x's dtype (a
+    dropped route adds 0 at the clamped slot ``cap - 1``, which may hold a
+    kept token); the buffers of all examples form one (E, B cap, d) operand
+    of one ``bmm`` per expert product (``router``, ``w_gate`` / ``w_up``
+    (E, d, f), ``w_down`` (E, f, d)).  A route's contribution is its expert
+    output times its gate (times 0 when dropped), formed in float32 and
+    rounded to x's dtype; a token's k contributions are then added in x's
+    dtype in route order, as JAX's scatter-add into x's dtype adds them.
+    Dropped routes pass through the residual unchanged.
+
+    ``cfg.moe_impl == "ep"`` (olmoe) routes the same way: JAX takes its
+    expert-parallel ``_moe_ep`` only under an active mesh, and the port has
+    none; that path waits for the multi-card slice (ROADMAP A7c)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    r = moe_routes(x, p, cfg)
+    slot = r.rank.clamp(max=r.cap - 1)
+    tok = torch.arange(s, device=x.device).repeat_interleave(k)
+    row = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
+    src = torch.where(r.keep[..., None], x[:, tok], 0.0)  # (B, S*k, d)
+    buf = x.new_zeros((e, b, r.cap, d))
+    buf.index_put_((r.experts, row, slot), src, accumulate=True)
+    xe = buf.view(e, b * r.cap, d)
+    if cfg.mlp_type == "swiglu":
+        h = silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+    else:
+        h = F.gelu(torch.bmm(xe, p["w_up"]), approximate="tanh")
+    out = torch.bmm(h, p["w_down"]).view(e, b, r.cap, d)
+    gathered = out[r.experts, row, slot]                   # (B, S*k, d)
+    contrib = (gathered.to(_F32) * (r.gates * r.keep)[..., None]).to(x.dtype)
+    contrib = contrib.view(b, s, k, d)
+    y = contrib[:, :, 0]
+    for j in range(1, k):
+        y = y + contrib[:, :, j]
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 / SSD
+# ---------------------------------------------------------------------------
+
+def mamba2_dims(cfg) -> tuple[int, int, int, int]:
+    """(d_in, heads, state, head width) of a Mamba2 layer."""
+    d_in = cfg.ssm_expand * cfg.d_model
+    nh = d_in // cfg.ssm_head_dim
+    return d_in, nh, cfg.ssm_state, cfg.ssm_head_dim
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d as K shifted multiply-adds in x's dtype, as
+    JAX computes it.  x (B,S,C), w (K,C), b (C)."""
+    k = w.shape[0]
+    s = x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for j in range(k):
+        out = out + xp[:, j: j + s] * w[j]
+    return out + b
+
+
+def _ssd_project(x: torch.Tensor, p: Params, cfg):
+    """(z, xbc, dt) from one ``in_proj`` product: widths d_in, d_in + 2 state,
+    heads."""
+    d_in, nh, ds, _ = mamba2_dims(cfg)
+    return dot(x, p["in_proj"]).split([d_in, d_in + 2 * ds, nh], dim=-1)
+
+
+def mamba2_scan(x: torch.Tensor, p: Params, cfg, *, chunk: int = 128,
+                return_state: bool = False):
+    """Chunk-parallel SSD forward.  x (B,S,d) -> y (B,S,d); with
+    ``return_state`` also (the final state (B, heads, head width, state) in
+    float32, the conv state: the last K - 1 positions of the raw,
+    pre-activation ``xbc`` stream).
+
+    Intra-chunk a masked quadratic form, inter-chunk a loop over the chunks
+    carrying the state.  A sequence shorter than ``chunk`` or not a multiple
+    of it runs as one chunk (JAX's rule; nothing is padded)."""
+    b, s, _ = x.shape
+    d_in, nh, ds, hd = mamba2_dims(cfg)
+    z, xbc_raw, dt = _ssd_project(x, p, cfg)
+    xbc = silu(_causal_conv(xbc_raw, p["conv_w"], p["conv_b"]))
+    xs, bmat, cmat = xbc.split([d_in, ds, ds], dim=-1)
+    dt = F.softplus(dt.to(_F32) + p["dt_bias"])             # (B,S,nh)
+    la = dt * -torch.exp(p["a_log"].to(_F32))               # log-decay < 0
+
+    if s < chunk or s % chunk != 0:
+        chunk = s
+    xh = xs.reshape(b, s, nh, hd).to(_F32)
+    bc, cc = bmat.to(_F32), cmat.to(_F32)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    h = torch.zeros((b, nh, hd, ds), dtype=_F32, device=x.device)
+    ys = []
+    for start in range(0, s, chunk):
+        c = slice(start, start + chunk)
+        xq, bq, cq, dtq = xh[:, c], bc[:, c], cc[:, c], dt[:, c]
+        cum = torch.cumsum(la[:, c], dim=1)                 # (B,Q,nh) inclusive
+        # intra-chunk
+        cb = torch.matmul(cq, bq.transpose(1, 2))          # (B,Q,Q)
+        seg = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])
+        seg = torch.where(tri[None, :, :, None], seg, 0.0)
+        w = cb[..., None] * seg * dtq[:, None, :, :]        # (B,Q,S,nh)
+        y = torch.einsum("bqsh,bshp->bqhp", w, xq)
+        # inter-chunk contribution of the carried state
+        y = y + torch.einsum("bqd,bhpd->bqhp", cq, h) * torch.exp(cum)[..., None]
+        rev = torch.exp(cum[:, -1:, :] - cum)               # decay s+1..end
+        h = torch.exp(cum[:, -1])[:, :, None, None] * h + torch.einsum(
+            "bshp,bsd->bhpd", xq * (rev * dtq)[..., None], bq)
+        ys.append(y)
+    y = torch.cat(ys, dim=1)                                # (B,S,nh,hd)
+    y = y + p["d_skip"].to(_F32)[None, None, :, None] * xh
+    y = y.reshape(b, s, d_in).to(x.dtype)
+    y = rms_norm(y * silu(z), p["norm"])
+    out = dot(y, p["out_proj"])
+    if return_state:
+        return out, (h, xbc_raw[:, -(cfg.ssm_conv - 1):])
+    return out
+
+
+def mamba2_decode(x_t: torch.Tensor, p: Params, cfg, h: torch.Tensor,
+                  conv_state: torch.Tensor):
+    """One-token SSD step.  x_t (B,1,d); h (B,heads,head width,state);
+    conv_state (B,K-1,C).  Returns (y, h, conv_state), new tensors.  The
+    convolution runs in float32 here (the scan's runs in x's dtype), as in
+    JAX."""
+    b = x_t.shape[0]
+    d_in, nh, ds, hd = mamba2_dims(cfg)
+    z, xbc, dt = _ssd_project(x_t, p, cfg)                  # (B,1,*)
+    window = torch.cat([conv_state, xbc], dim=1)            # (B,K,C)
+    conv_out = (window.to(_F32) * p["conv_w"].to(_F32)).sum(dim=1) + p["conv_b"]
+    xbc_t = silu(conv_out)[:, None, :].to(x_t.dtype)
+    xs, bmat, cmat = xbc_t.split([d_in, ds, ds], dim=-1)
+    dtv = F.softplus(dt[:, 0].to(_F32) + p["dt_bias"])     # (B,nh)
+    decay = torch.exp(dtv * -torch.exp(p["a_log"].to(_F32)))
+    xh = xs[:, 0].reshape(b, nh, hd).to(_F32)
+    bv, cv = bmat[:, 0].to(_F32), cmat[:, 0].to(_F32)       # (B,ds)
+    h = decay[:, :, None, None] * h + (dtv[:, :, None] * xh)[..., None] * bv[:, None, None, :]
+    y = torch.einsum("bd,bhpd->bhp", cv, h)
+    y = y + p["d_skip"].to(_F32)[None, :, None] * xh
+    y = y.reshape(b, 1, d_in).to(x_t.dtype)
+    y = rms_norm(y * silu(z), p["norm"])
+    return dot(y, p["out_proj"]), h, window[:, 1:]
+
+
+# ---------------------------------------------------------------------------
+# xLSTM cells
+# ---------------------------------------------------------------------------
+
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return -F.softplus(-x)
+
+
+def mlstm_chunked(q, k, v, i_pre, f_pre, *, chunk: int = 128, initial=None,
+                  return_state: bool = False):
+    """Stabilised chunkwise mLSTM.  q, k, v (B,S,H,D); i_pre, f_pre (B,S,H).
+
+    C_t = f_t C + i_t k v^T ; n_t = f_t n + i_t k ;
+    h_t = (q·C) / max(|q·n|, exp(-m)) with a running stabiliser m, which
+    starts at -inf (``initial=None``) and is kept above -1e30, so that an
+    all -inf row gives exp(-inf) = 0 and never NaN.  ``chunk`` must divide
+    S.  Returns h (B,S,H,D) float32, and with ``return_state`` the final
+    (C (B,H,D,D), n (B,H,D), m (B,H))."""
+    b, s, h, d = q.shape
+    if s % chunk:
+        raise ValueError(f"chunk {chunk} does not divide the sequence ({s})")
+    log_f = _log_sigmoid(f_pre.to(_F32))
+    log_i = i_pre.to(_F32)
+    qf = q.to(_F32) * d ** -0.5
+    kf, vf = k.to(_F32), v.to(_F32)
+    if initial is None:
+        cmat = torch.zeros((b, h, d, d), dtype=_F32, device=q.device)
+        nvec = torch.zeros((b, h, d), dtype=_F32, device=q.device)
+        m = torch.full((b, h), -math.inf, dtype=_F32, device=q.device)
+    else:
+        cmat, nvec, m = initial
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
+    outs = []
+    for start in range(0, s, chunk):
+        c = slice(start, start + chunk)
+        qq, kk, vv, li = qf[:, c], kf[:, c], vf[:, c], log_i[:, c]
+        cum = torch.cumsum(log_f[:, c], dim=1)              # inclusive (B,Q,H)
+        logd = cum[:, :, None, :] - cum[:, None, :, :] + li[:, None, :, :]
+        logd = torch.where(tri[None, :, :, None], logd, -math.inf)
+        m_inter = cum + m[:, None, :]                       # carry decayed to t
+        m_new = torch.maximum(logd.amax(dim=2), m_inter).clamp_min(_NEG)
+        w = torch.exp(logd - m_new[:, :, None, :])          # (B,Q,S,H)
+        sw = torch.einsum("bqhd,bshd->bqsh", qq, kk) * w
+        num = torch.einsum("bqsh,bshd->bqhd", sw, vv)
+        den = sw.sum(dim=2)
+        inter_scale = torch.exp(m_inter - m_new)            # (B,Q,H)
+        num = num + torch.einsum("bqhd,bhde->bqhe", qq, cmat) * inter_scale[..., None]
+        den = den + torch.einsum("bqhd,bhd->bqh", qq, nvec) * inter_scale
+        outs.append(num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None])
+        # chunk-end state
+        tot = cum[:, -1]                                    # (B,H)
+        tail = cum[:, -1:, :] - cum + li
+        m_out = torch.maximum(tot + m, tail.amax(dim=1))
+        decay_in = torch.exp(tot + m - m_out)
+        wk = torch.exp(tail - m_out[:, None, :])            # (B,Q,H)
+        cmat = decay_in[:, :, None, None] * cmat + torch.einsum(
+            "bqhd,bqhe->bhde", kk * wk[..., None], vv)
+        nvec = decay_in[:, :, None] * nvec + torch.einsum("bqh,bqhd->bhd", wk, kk)
+        m = m_out
+    out = torch.cat(outs, dim=1)
+    if return_state:
+        return out, (cmat, nvec, m)
+    return out
+
+
+def mlstm_decode(q, k, v, i_pre, f_pre, state):
+    """One mLSTM step.  q, k, v (B,H,D); i_pre, f_pre (B,H); state (C, n, m)
+    as :func:`mlstm_chunked` returns it.  Returns (h (B,H,D), state)."""
+    c, n, m = state
+    d = q.shape[-1]
+    qf = q.to(_F32) * d ** -0.5
+    log_f = _log_sigmoid(f_pre.to(_F32))
+    log_i = i_pre.to(_F32)
+    m_new = torch.maximum(log_f + m, log_i)
+    f_s = torch.exp(log_f + m - m_new)
+    i_s = torch.exp(log_i - m_new)
+    kf, vf = k.to(_F32), v.to(_F32)
+    c = f_s[..., None, None] * c + i_s[..., None, None] * (kf[..., :, None] * vf[..., None, :])
+    n = f_s[..., None] * n + i_s[..., None] * kf
+    num = torch.einsum("bhd,bhde->bhe", qf, c)
+    den = torch.maximum(torch.einsum("bhd,bhd->bh", qf, n).abs(), torch.exp(-m_new))
+    return num / den[..., None], (c, n, m_new)
+
+
+def slstm_scan(x_gates: torch.Tensor, r: torch.Tensor, *, initial=None,
+               return_state: bool = False):
+    """sLSTM over time.  x_gates (B,S,H,4,D): the input pre-activations of
+    (z, i, f, o); r (H,4,D,D): recurrent weights applied to h_{t-1}.  A time
+    loop of S steps, each a handful of small launches (JAX scans it the same
+    way; the package has no kernel for it).  Returns h (B,S,H,D) float32 and,
+    with ``return_state``, (h, c, n, m) of the last step."""
+    b, s, h, _, d = x_gates.shape
+    if initial is None:
+        hid, c, n, m = (torch.zeros((b, h, d), dtype=_F32, device=x_gates.device)
+                        for _ in range(4))
+    else:
+        hid, c, n, m = initial
+    # rec[b, h, g, e] = sum_d hid[b, h, d] r[h, g, d, e], one bmm over the heads
+    rf = r.to(_F32).permute(0, 2, 1, 3).reshape(h, d, 4 * d)
+    gates = x_gates.to(_F32)
+    outs = []
+    for t in range(s):
+        rec = torch.bmm(hid.transpose(0, 1), rf).view(h, b, 4, d).transpose(0, 1)
+        pre = gates[:, t] + rec
+        z = torch.tanh(pre[:, :, 0])
+        i_t = pre[:, :, 1]
+        o = torch.sigmoid(pre[:, :, 3])
+        log_f = _log_sigmoid(pre[:, :, 2])
+        m_new = torch.maximum(log_f + m, i_t)
+        i_s = torch.exp(i_t - m_new)
+        f_s = torch.exp(log_f + m - m_new)
+        c = f_s * c + i_s * z
+        n = f_s * n + i_s
+        hid = o * c / n.clamp_min(1e-6)
+        m = m_new
+        outs.append(hid)
+    out = torch.stack(outs, dim=1)                          # (B,S,H,D)
+    if return_state:
+        return out, (hid, c, n, m)
+    return out
+
+
+__all__ = ["MoeRoutes", "attention_decode", "attention_train", "dot", "mamba2_decode",
+           "mamba2_dims", "mamba2_scan", "mlp", "mlstm_chunked", "mlstm_decode", "moe",
+           "moe_capacity", "moe_routes", "rms_norm", "rope", "silu", "slstm_scan"]

@@ -1,11 +1,11 @@
-"""Dense decoder-only LM: parameters, prefill and cached decode
-(``repro/models/lm.py``, the text path of its dense family).
+"""Decoder-only LM, dense or MoE: parameters, prefill and cached decode
+(``repro/models/lm.py``, the text path of its dense and MoE families).
 
 Parameters live in a :class:`DecoderLM` module under the JAX names and
 layouts: ``embed`` (V, d), ``blocks`` (each tensor stacked over layers,
 (L, ...)), ``ln_f`` (d,) and ``lm_head`` (d, V) unless the embeddings are
 tied; ``params["embed"]`` reads as in JAX, so carrying JAX weights over is
-a copy, name for name (``repro_torch.convert.lm_params``).
+a copy, name for name (``repro_torch.convert.model_params``).
 
 The JAX package scans over the stacked layers; the port loops over them.
 The KV cache is the JAX dict ``{"k": (L, B, Hkv, S, Dh), "v": ..., "pos"}``,
@@ -22,7 +22,10 @@ outside inference mode through a differentiable :func:`_run_blocks`
 nests ``jax.checkpoint``).  Parameters are created frozen; a trainer calls
 :meth:`DecoderLM.trainable` (``models.api.init_state`` does).
 
-MoE blocks and the vision / audio stub frontends wait for later slices.
+A block's MLP is :func:`layers.moe` when ``cfg.n_experts`` is set (its
+``router`` (L, d, E), ``w_gate`` / ``w_up`` (L, E, d, f) and ``w_down``
+(L, E, f, d)), else :func:`layers.mlp`.  The vision / audio stub frontends
+wait for the next slice (ROADMAP A7b).
 """
 
 from __future__ import annotations
@@ -41,12 +44,60 @@ from . import layers as L
 _F32 = torch.float32
 
 
-class DecoderLM(nn.Module):
-    """The parameters of a dense decoder LM, under the JAX names."""
+def frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def stacked_layers(stack: dict[str, torch.Tensor]) -> list[dict[str, torch.Tensor]]:
+    """Every layer's tensors from layer-stacked (L, ...) tensors, from one
+    ``unbind`` of each: under autograd the layers' gradients are stacked
+    once, where indexing layer by layer would add a full-size gradient for
+    each layer."""
+    per_name = {name: t.unbind(0) for name, t in stack.items()}
+    return [{name: ts[i] for name, ts in per_name.items()}
+            for i in range(len(next(iter(per_name.values()))))]
+
+
+class ParamTree(nn.Module):
+    """The parameters of one of the port's models, under the JAX names, as a
+    module: ``params["embed"]`` reads as in JAX, and :meth:`layer` gives one
+    layer's tensors.  Parameters are created frozen; a trainer calls
+    :meth:`trainable`.  :meth:`tensors` / :meth:`from_tensors` give the flat
+    form (dotted names) that gradients, optimizer moments and checkpoints
+    take."""
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def trainable(self):
+        """Let every parameter require grad (in place); returns ``self``."""
+        for p in self.parameters():
+            p.requires_grad_(True)
+        return self
+
+    def tensors(self) -> dict[str, torch.Tensor]:
+        """The parameters by dotted name (``embed``, ``blocks.wq``, ...,
+        ``ln_f``, ``lm_head``)."""
+        return dict(self.named_parameters())
+
+    @classmethod
+    def from_tensors(cls, named: dict[str, torch.Tensor]):
+        """The inverse of :meth:`tensors` (frozen parameters)."""
+        tree: dict = {}
+        for name, t in named.items():
+            *heads, leaf = name.split(".")
+            node = tree
+            for head in heads:
+                node = node.setdefault(head, {})
+            node[leaf] = t
+        return cls(tree)
+
+
+class DecoderLM(ParamTree):
+    """The parameters of a decoder LM (dense or MoE), under the JAX names."""
 
     def __init__(self, tree: dict):
         super().__init__()
-        frozen = lambda t: nn.Parameter(t, requires_grad=False)
         self.embed = frozen(tree["embed"])
         self.blocks = nn.ParameterDict({k: frozen(v) for k, v in tree["blocks"].items()})
         self.ln_f = frozen(tree["ln_f"])
@@ -55,80 +106,60 @@ class DecoderLM(nn.Module):
         else:
             self.lm_head = frozen(tree["lm_head"])
 
-    def __getitem__(self, name: str):
-        return getattr(self, name)
-
     def layer(self, i: int) -> dict[str, torch.Tensor]:
         """Layer ``i``'s block tensors (views of the stacked ones)."""
         return {name: t[i] for name, t in self.blocks.items()}
 
     def layers(self) -> list[dict[str, torch.Tensor]]:
-        """Every layer's block tensors, from one ``unbind`` of each stacked
-        tensor: under autograd the layers' gradients are stacked once, where
-        ``layer(i)`` would add a full-size gradient for each layer."""
-        per_name = {name: t.unbind(0) for name, t in self.blocks.items()}
-        return [{name: ts[i] for name, ts in per_name.items()}
-                for i in range(len(next(iter(per_name.values()))))]
-
-    def trainable(self) -> "DecoderLM":
-        """Let every parameter require grad (in place); returns ``self``."""
-        for p in self.parameters():
-            p.requires_grad_(True)
-        return self
-
-    def tensors(self) -> dict[str, torch.Tensor]:
-        """The parameters by dotted name (``embed``, ``blocks.wq``, ...,
-        ``ln_f``, ``lm_head``), the flat form gradients and optimizer
-        moments take."""
-        return dict(self.named_parameters())
-
-    @classmethod
-    def from_tensors(cls, named: dict[str, torch.Tensor]) -> "DecoderLM":
-        """The inverse of :meth:`tensors` (frozen parameters)."""
-        tree: dict = {"blocks": {}}
-        for name, t in named.items():
-            head, _, rest = name.partition(".")
-            if rest:
-                tree[head][rest] = t
-            else:
-                tree[head] = t
-        return cls(tree)
+        """Every layer's block tensors (:func:`stacked_layers`)."""
+        return stacked_layers(dict(self.blocks.items()))
 
 
-def _check_dense(cfg) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks are not ported yet (a later LM-zoo slice)")
+def _check_text(cfg) -> None:
     if cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            "(a later LM-zoo slice)")
+            "(the second part of ROADMAP A7b)")
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
+class ParamDraws:
+    """Random parameters from the JAX package's distributions, drawn from
+    ``generator`` (which must live on ``device``) and stored in ``cfg.dtype``
+    unless a dtype is given.  Same distributions, not the same bits."""
+
+    def __init__(self, generator: torch.Generator, cfg, device=None):
+        self.generator = generator
+        self.dtype = getattr(torch, cfg.dtype)
+        self.device = resolve_device(device)
+
+    def normal(self, *shape, scale: float = 0.02) -> torch.Tensor:
+        """N(0, scale^2), drawn in float32 and scaled in place: one float32
+        draw alive at a time (nemotron's (18 432, 256 000) lm_head is 18.9 GB
+        in float32)."""
+        t = torch.randn(shape, generator=self.generator, dtype=_F32, device=self.device)
+        return t.mul_(scale).to(self.dtype)
+
+    def ones(self, *shape, dtype=None) -> torch.Tensor:
+        return torch.ones(shape, dtype=dtype or self.dtype, device=self.device)
+
+    def zeros(self, *shape, dtype=None) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype or self.dtype, device=self.device)
+
+
 def init_params(generator: torch.Generator, cfg, device=None) -> DecoderLM:
     """Random parameters from the JAX package's distributions (normal times
     0.02, output projections times 0.02 / sqrt(2 L), norms at 1), drawn in
-    float32 from ``generator`` and cast to ``cfg.dtype``.  Same
-    distributions, not the same bits: the generator must live on
-    ``device``."""
-    _check_dense(cfg)
-    dev = resolve_device(device)
-    dtype = getattr(torch, cfg.dtype)
+    float32 from ``generator`` and cast to ``cfg.dtype``
+    (:class:`ParamDraws`)."""
+    _check_text(cfg)
+    draw = ParamDraws(generator, cfg, device)
+    normal, ones = draw.normal, draw.ones
     d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab
     hq, hkv, hd, n = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.n_layers
-
-    def normal(*shape, scale=0.02):
-        # scaled in place: one float32 draw alive at a time (nemotron's
-        # (18 432, 256 000) lm_head is 18.9 GB in float32)
-        t = torch.randn(shape, generator=generator, dtype=_F32, device=dev)
-        return t.mul_(scale).to(dtype)
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=dtype, device=dev)
 
     out_scale = 0.02 / math.sqrt(2 * n)
     blocks = {
@@ -139,10 +170,17 @@ def init_params(generator: torch.Generator, cfg, device=None) -> DecoderLM:
     if cfg.qk_norm:
         blocks["q_scale"] = ones(n, hd)
         blocks["k_scale"] = ones(n, hd)
-    if cfg.mlp_type == "swiglu":
-        blocks["w_gate"] = normal(n, d, f)
-    blocks["w_up"] = normal(n, d, f)
-    blocks["w_down"] = normal(n, f, d, scale=out_scale)
+    if cfg.n_experts:
+        e = cfg.n_experts
+        blocks["router"] = normal(n, d, e)
+        blocks["w_gate"] = normal(n, e, d, f)
+        blocks["w_up"] = normal(n, e, d, f)
+        blocks["w_down"] = normal(n, e, f, d, scale=out_scale)
+    else:
+        if cfg.mlp_type == "swiglu":
+            blocks["w_gate"] = normal(n, d, f)
+        blocks["w_up"] = normal(n, d, f)
+        blocks["w_down"] = normal(n, f, d, scale=out_scale)
     tree = {"embed": normal(v, d), "blocks": blocks, "ln_f": ones(d)}
     if not cfg.tie_embeddings:
         tree["lm_head"] = normal(d, v)
@@ -161,7 +199,7 @@ def _embed(params: DecoderLM, tokens: torch.Tensor, cfg) -> torch.Tensor:
 def _embed_sequence(params: DecoderLM, batch, cfg):
     """Tokens -> (B, S, d), and the number of prefix (non-text) positions
     (0: the stub frontends are not ported)."""
-    _check_dense(cfg)
+    _check_text(cfg)
     return _embed(params, batch["tokens"], cfg), 0
 
 
@@ -176,7 +214,8 @@ def _logits(params: DecoderLM, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def _block_tail(x: torch.Tensor, bp, cfg) -> torch.Tensor:
-    return x + L.mlp(L.rms_norm(x, bp["ln2"]), bp, cfg)
+    z = L.rms_norm(x, bp["ln2"])
+    return x + (L.moe(z, bp, cfg) if cfg.n_experts else L.mlp(z, bp, cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -226,8 +265,14 @@ def train_loss(params: DecoderLM, batch, cfg) -> torch.Tensor:
     x = _run_blocks(x, params, cfg, positions)
     x = L.rms_norm(x, params["ln_f"])
     logits = _logits(params, x, cfg)                       # (B, S_total, V) f32
-    pred = logits[:, prefix:][:, :-1]
-    tgt = batch["tokens"][:, 1:].long()
+    return next_token_loss(logits[:, prefix:], batch["tokens"])
+
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of float32 text logits (B, S, V) against the next
+    tokens."""
+    pred = logits[:, :-1]
+    tgt = tokens[:, 1:].long()
     lse = torch.logsumexp(pred, dim=-1)
     true = torch.gather(pred, -1, tgt[..., None])[..., 0]
     return torch.mean(lse - true)
@@ -290,4 +335,5 @@ def decode_step(params: DecoderLM, batch, cache: dict, cfg):
     return logits, cache
 
 
-__all__ = ["DecoderLM", "decode_step", "init_cache", "init_params", "prefill", "train_loss"]
+__all__ = ["DecoderLM", "ParamDraws", "ParamTree", "decode_step", "init_cache", "init_params",
+           "next_token_loss", "prefill", "train_loss"]

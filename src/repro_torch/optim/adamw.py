@@ -2,7 +2,7 @@
 (``repro/optim/adamw.py``), in plain PyTorch.
 
 The state is ``TrainState(params, m, v, step)``: ``params`` a module whose
-``tensors()`` gives its parameters by dotted name (``models.lm.DecoderLM``),
+``tensors()`` gives its parameters by dotted name (``models.lm.ParamTree``),
 ``m`` and ``v`` dicts under the same names, stored in ``opt_state_dtype``
 (float32, or bf16 for nemotron), and ``step`` an int32 0-d tensor.  The
 arithmetic is JAX's, in float32.  Unlike JAX, :func:`adamw_update` writes
@@ -26,9 +26,11 @@ class TrainState(NamedTuple):
 
 
 def jax_order(names) -> list[str]:
-    """Dotted names in the order JAX flattens the same nested dict: keys
-    sorted level by level."""
-    return sorted(names, key=lambda name: tuple(name.split(".")))
+    """Dotted names in the order JAX flattens the same tree: dict keys
+    sorted level by level, tuple positions (the digit parts, xLSTM's
+    ``blocks.10``) in numeric order."""
+    part = lambda p: (0, int(p), "") if p.isdigit() else (1, 0, p)
+    return sorted(names, key=lambda name: tuple(part(p) for p in name.split(".")))
 
 
 def adamw_init(params, state_dtype=_F32) -> TrainState:

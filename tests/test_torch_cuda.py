@@ -762,3 +762,72 @@ def test_full_width_qwen3_train_step_on_the_card(cuda_device):
     assert math.isfinite(loss) and abs(loss - math.log(cfg.vocab_size)) < 1.0
     assert math.isfinite(float(metrics["grad_norm"])) and int(state.step) == 1
     assert not torch.equal(state.params["embed"].detach(), before)
+
+
+# the new families' SMOKE configs (float32): zamba2 with a tail group, and
+# mixtral on 40 tokens, past its 32-token window
+ZOO_SMOKE = {"olmoe": ("olmoe_1b_7b", {}), "mixtral": ("mixtral_8x22b", {}),
+             "zamba2-tail": ("zamba2_7b", dict(n_layers=5)), "xlstm": ("xlstm_125m", {})}
+
+
+def _zoo_smoke(which, **extra):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import api
+    arch, over = ZOO_SMOKE[which]
+    cfg = get_smoke_config(arch, **over, **extra)
+    params = api.get_model(cfg).init_params(torch.Generator().manual_seed(0), cfg,
+                                            device="cpu")
+    return cfg, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", list(ZOO_SMOKE))
+def test_zoo_smoke_serving_on_the_card_matches_the_cpu(cuda_device, which):
+    """Each new family through the flash prefill and 4 decode steps: the card
+    within 1e-4 of the CPU (float32 sums in other orders, logits of order
+    0.5), B6 launched ``attention_calls`` times in the prefill (olmoe and
+    mixtral 2, zamba2 3, xLSTM 0) and never in decode."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    cfg, params = _zoo_smoke(which, attn_impl="flash")
+    tokens = api.make_batch(cfg, ShapeCell("c", 40, 3, "prefill"),
+                            torch.Generator().manual_seed(1), device="cpu")["tokens"]
+    prefill, serve = api.make_prefill_step(cfg, max_len=48), api.make_serve_step(cfg)
+    on_card = copy.deepcopy(params).to(cuda_device)
+    before = fa.launch_counts()["flash_attention_cuda"]
+    got, cache = prefill(on_card, {"tokens": tokens.to(cuda_device)})
+    assert fa.launch_counts()["flash_attention_cuda"] == before + api.attention_calls(cfg)
+    want, cache_cpu = prefill(params, {"tokens": tokens})
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    for _ in range(4):
+        tok = want.argmax(-1)
+        got, cache = serve(on_card, cache, {"next_token": tok.to(cuda_device)})
+        want, cache_cpu = serve(params, cache_cpu, {"next_token": tok})
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    assert fa.launch_counts()["flash_attention_cuda"] == before + api.attention_calls(cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["olmoe", "zamba2-tail", "xlstm"])
+def test_zoo_smoke_train_step_on_the_card_matches_the_cpu(cuda_device, which):
+    """One ``make_train_step`` step of each new family on the card and on
+    the CPU from the same state and batch: loss and gradient norm within
+    rtol 1e-4 (float32 sums in other orders), finite parameters after it."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.models import api
+    from repro_torch.optim import TrainState
+    cfg, _ = _zoo_smoke(which)
+    state = api.init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on_card = TrainState(params=copy.deepcopy(state.params).to(cuda_device),
+                         m={k: t.to(cuda_device) for k, t in state.m.items()},
+                         v={k: t.to(cuda_device) for k, t in state.v.items()},
+                         step=state.step.to(cuda_device))
+    batch = api.make_batch(cfg, ShapeCell("t", 16, 4, "train"),
+                           torch.Generator().manual_seed(2), device="cpu")
+    step = api.make_train_step(cfg)
+    got_state, got = step(on_card, {k: t.to(cuda_device) for k, t in batch.items()})
+    _, want = step(state, batch)
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-4, atol=0)
+    assert all(bool(torch.isfinite(t).all()) for t in got_state.params.tensors().values())

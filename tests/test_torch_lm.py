@@ -4,7 +4,7 @@ Each dense config's SMOKE config (float32, 2 layers; qwen3: GQA 4 over 2
 heads with qk-norm, llama3.2: 6 over 2, yi: 4 over 2 with
 ``decode_attn="sharded_lse"``, nemotron-4: 6 over 2 with a squared-ReLU MLP)
 with the JAX ``init_params(PRNGKey(0))`` tree carried over by
-``convert.lm_params``: the layers, the prefill logits and KV cache for each
+``convert.model_params``: the layers, the prefill logits and KV cache for each
 ``attn_impl`` and four cached decode steps must match JAX within float32
 round-off (rtol and atol 1e-5, on logits of order 0.5 and on the cache),
 and the port's own decode must reproduce its prefill.
@@ -55,7 +55,7 @@ def jparams(jcfg):
 
 @pytest.fixture(scope="module")
 def params(jparams, cfg):
-    return convert.lm_params(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    return convert.model_params(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -79,23 +79,25 @@ def test_configs_are_the_jax_package_numbers(name):
     theirs = importlib.import_module(f"repro.configs.{name}")
     for which in ("CONFIG", "SMOKE"):
         assert dataclasses.asdict(getattr(mine, which)) == dataclasses.asdict(getattr(theirs, which))
-    assert set(tbase.list_configs()) == set(ARCHS) and set(ARCHS) <= set(jbase.list_configs())
+    decoder_only = set(ARCHS) | {"mixtral_8x22b", "olmoe_1b_7b", "zamba2_7b", "xlstm_125m"}
+    assert set(tbase.list_configs()) == decoder_only <= set(jbase.list_configs())
     dashed = getattr(theirs, "CONFIG").name
     assert tbase.get_config(dashed, attn_impl="flash").attn_impl == "flash"
     assert tbase.get_config(name).n_params() == jbase.get_config(name).n_params()
     assert tbase.SHAPE_CELLS == {k: tbase.ShapeCell(**dataclasses.asdict(v))
                                  for k, v in jbase.SHAPE_CELLS.items()}
-    with pytest.raises(ValueError, match="mixtral_8x22b"):
-        tbase.get_config("mixtral_8x22b")
+    with pytest.raises(ValueError, match="whisper_tiny"):
+        tbase.get_config("whisper_tiny")
 
 
 def test_unported_families_raise(cfg):
-    with pytest.raises(NotImplementedError, match="MoE"):
-        api.get_model(dataclasses.replace(cfg, n_experts=4, top_k=2))
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        api.get_model(dataclasses.replace(cfg, family="hybrid"))
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         api.get_model(dataclasses.replace(cfg, encoder_layers=2))
+    with pytest.raises(NotImplementedError, match="vision_stub frontend"):
+        api.get_model(dataclasses.replace(cfg, family="vlm", frontend="vision_stub"))
+    with pytest.raises(NotImplementedError, match="audio_stub frontend"):
+        lm.init_params(torch.Generator(), dataclasses.replace(cfg, frontend="audio_stub"),
+                       device="cpu")
 
 
 def test_init_params_has_the_jax_tree(jparams, cfg):
@@ -214,7 +216,7 @@ def test_bf16_prefill_tracks_jax(jcfg, cfg, jparams, tokens, jax_prefills):
     jp16 = jax.tree.map(lambda a: a.astype(jnp.bfloat16), jparams)
     want, _ = japi.make_prefill_step(jcfg16, max_len=MAX_LEN, attn_impl="flash")(
         jp16, {"tokens": jnp.asarray(tokens, jnp.int32)})
-    p16 = convert.lm_params(jax.tree.map(np.asarray, jp16), cfg16, device="cpu")
+    p16 = convert.model_params(jax.tree.map(np.asarray, jp16), cfg16, device="cpu")
     assert p16["embed"].dtype == torch.bfloat16
     got, cache = api.make_prefill_step(cfg16, max_len=MAX_LEN)(
         p16, {"tokens": torch.from_numpy(tokens)})
