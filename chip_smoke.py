@@ -85,16 +85,19 @@ Phases, one line each (any failure raises and exits non-zero):
      (phi-3-vision 96, zamba2 112, nemotron-4 192), float32 at D = 192 and
      D = 40, and phase 17's prefills (olmoe's (4, 16, 2048, 128) over 16,
      mixtral's (1, 48, 6144, 128) over 8 with its 4096-token window,
-     zamba2's (4, 32, 2048, 112) over 32);
+     zamba2's (4, 32, 2048, 112) over 32), and phase 18's (whisper's
+     non-causal encoder (8, 6, 1500, 64), its non-causal cross-attention
+     q (8, 6, 432, 64) over k, v (8, 6, 1500, 64), phi-3-vision's
+     (4, 32, 2048, 96) over 32);
      each line names the route its dtype and D take (wgmma, mma or ffma) and
      the instantiation that ran; inputs are the (B, H, S, D) views of (B, S, H, D)
      tensors, as the layer passes them.  bf16 and fp16 within
      eps max|v| + eps |ref| elementwise, eps the type's rounding unit (2^-8,
      2^-11: P rounded to the input type for P V, and the output's
      rounding), float32 within 1e-5 (P |V|); each timed beside its plain
-     version, its bound and, where Sq = Sk, ``scaled_dot_product_attention``
-     (a window given as a boolean mask); then Sk = 0 on every route must give
-     zeros;
+     version, its bound and, where Sq = Sk or nothing is masked,
+     ``scaled_dot_product_attention`` (a window given as a boolean mask);
+     then Sk = 0 on every route must give zeros;
  10. the LM serving path at full width: ``qwen3_0_6b`` (28 layers, d_model
      1024, vocab 151 936, already a multiple of the 128 it pads to, bf16,
      random weights from a seeded generator) with ``attn_impl="flash"`` serves 4 prompts of 2048
@@ -226,6 +229,20 @@ Phases, one line each (any failure raises and exits non-zero):
      times, peak memory, B6's route and launches, and the routes dropped in
      the main prefill, ``n_attn_apps`` or the sLSTM steps, and a profiled
      prefill and 8 decode steps (idle share, top kernels).
+  18. the encoder-decoder and vision-stub families served at full width,
+     each as phase 17 serves its configs, the batch (tokens and the stub's
+     frames or patches, random) from ``api.make_batch`` and carried into
+     every prefill: ``whisper_tiny`` (4 encoder and 4 decoder layers, 6
+     heads of 64) on 8 prompts of 432 tokens over 1 500 frames and 16
+     decode steps (448 positions, its text context), and
+     ``phi_3_vision_4_2b`` whole (32 layers, 32 heads of 96: the mma
+     route) on 4 prompts of 576 patches and 1 472 tokens and 16 steps.
+     B6 must launch ``api.attention_calls(cfg)`` times a prefill (12:
+     each encoder layer, each decoder layer's self- and cross-attention;
+     32) and not in decode; every logit finite; the flash prefill against
+     float32 as in phase 15; two decode steps against fresh prefills with
+     the same frames or patches; each line gives the times, peak memory,
+     B6's route and launches and a profiled prefill and 8 decode steps.
 
 It then prints the kernels' JSON record, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  It writes no file outside a temporary
@@ -948,6 +965,12 @@ def check_flash_kernel() -> dict:
         ("olmoe-1b-7b mha 16/16", 4, 16, 16, 2048, 2048, 128, bf16, True, None, False),
         ("mixtral-8x22b window 4096", 1, 48, 8, 6144, 6144, 128, bf16, True, 4096, False),
         ("zamba2-7b d112 batch 4", 4, 32, 32, 2048, 2048, 112, bf16, True, None, False),
+        # phase 18's prefills: whisper-tiny's bidirectional encoder over its
+        # 1500 frames and its cross-attention (432 text queries over them),
+        # phi-3-vision's 32 heads of 96 (the mma route) at batch 4
+        ("whisper encoder", 8, 6, 6, 1500, 1500, 64, bf16, False, None, False),
+        ("whisper cross", 8, 6, 6, 432, 1500, 64, bf16, False, None, False),
+        ("phi-3-vision d96 batch 4", 4, 32, 32, 2048, 2048, 96, bf16, True, None, False),
         ("d40, the next instantiation up", 2, 8, 8, 1000, 1000, 40, bf16, True, None, False),
     ]
     record = {}
@@ -980,7 +1003,7 @@ def check_flash_kernel() -> dict:
         plain_ms = time_ms(plain, warm=1, runs=3)
         library_ms = None
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        if sq == sk and window is None:
+        if window is None and (sq == sk or not causal):   # SDPA aligns causal masks top-left
             library_ms = time_ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True))
         elif sq == sk:     # the window as a boolean mask
             mask = visible_mask(range(sq), sq, sk, causal, window, q.device)
@@ -1047,6 +1070,11 @@ class Float32Layers:
     def layer(self, i: int) -> dict:
         return {name: t.float() for name, t in self.params.layer(i).items()}
 
+    def stack(self, name: str) -> list[dict]:
+        """One of the encoder-decoder's stacks (``EncDecLM.stack``), upcast
+        whole: whisper-tiny's largest is 7 M parameters."""
+        return [{k: t.float() for k, t in bp.items()} for bp in self.params.stack(name)]
+
 
 def bf16_bound(ref_logits: torch.Tensor, cfg) -> float:
     """The bound phase 17 holds xLSTM's bf16 prefill to, against a float32
@@ -1088,8 +1116,13 @@ def serve_config(name: str, *, batch: int, prompt: int, steps: int, checked_step
                  seed: int, tag: str, profile: bool = False, **overrides) -> int:
     """One config's serving path at full width (``overrides`` may cut its
     depth); returns B6's launches in the main path's run (one flash prefill
-    and the decode steps).  Phase 10 (qwen3), phase 15 (the rest of the
-    dense family) and phase 17 (MoE, hybrid, xLSTM) run it."""
+    and the decode steps).  The batch is ``api.make_batch``'s for a prefill
+    cell of ``prompt`` positions: the tokens and, for the stub frontends,
+    whisper's frames (beside the prompt) or phi-3-vision's patches (the
+    first ``frontend_tokens`` of the prompt's positions), carried into
+    every prefill made here.  Phase 10 (qwen3), phase 15 (the rest of the
+    dense family), phase 17 (MoE, hybrid, xLSTM) and phase 18 (enc-dec, the
+    vision stub) run it."""
     import dataclasses
     import gc
 
@@ -1104,15 +1137,16 @@ def serve_config(name: str, *, batch: int, prompt: int, steps: int, checked_step
     gen.manual_seed(seed)
     params = api.get_model(cfg).init_params(gen, cfg, device="cuda")
     n_params = sum(t.numel() for t in params.parameters())
-    tokens = api.make_batch(cfg, ShapeCell("serve", prompt, batch, "prefill"), gen,
-                            device="cuda")["tokens"]
+    inputs = api.make_batch(cfg, ShapeCell("serve", prompt, batch, "prefill"), gen,
+                            device="cuda")
+    tokens = inputs["tokens"]
     prefill = api.make_prefill_step(cfg, max_len=prompt + steps)
     serve = api.make_serve_step(cfg)
     # the step functions set the bf16 split-K flag for their call only
     flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
 
     # warm-up (cuBLAS handles, the allocator): one prefill and one step
-    logits, cache = prefill(params, {"tokens": tokens})
+    logits, cache = prefill(params, inputs)
     serve(params, cache, {"next_token": logits.argmax(-1)})
     del logits, cache
     torch.cuda.empty_cache()
@@ -1120,7 +1154,7 @@ def serve_config(name: str, *, batch: int, prompt: int, steps: int, checked_step
 
     # -- the main path: prefill, then greedy decode ---------------------------
     reset_all_launch_counts()
-    (logits, cache), prefill_s = timed(lambda: prefill(params, {"tokens": tokens}))
+    (logits, cache), prefill_s = timed(lambda: prefill(params, inputs))
     launches_prefill = fa.launch_counts()["flash_attention_cuda"]
     first_logits = logits
     fed, kept = [], {}
@@ -1152,14 +1186,14 @@ def serve_config(name: str, *, batch: int, prompt: int, steps: int, checked_step
     # runs no attention: its bf16 prefill is held to bf16_bound instead.
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     ref32 = api.make_prefill_step(cfg32, max_len=prompt, attn_impl="ref")
-    want = ref32(Float32Layers(params), {"tokens": tokens})[0]
+    want = ref32(Float32Layers(params), inputs)[0]
     torch.cuda.empty_cache()
     real = slice(0, cfg.vocab_size)
     err_flash = float((first_logits[:, real] - want[:, real]).abs().max())
     dense_s = None
     if expected:
         dense = api.make_prefill_step(cfg, max_len=prompt + steps, attn_impl="ref")
-        dense_logits, dense_s = timed(lambda: dense(params, {"tokens": tokens})[0])
+        dense_logits, dense_s = timed(lambda: dense(params, inputs)[0])
         torch.cuda.empty_cache()
         err_dense = float((dense_logits[:, real] - want[:, real]).abs().max())
         del dense_logits
@@ -1173,9 +1207,10 @@ def serve_config(name: str, *, batch: int, prompt: int, steps: int, checked_step
                                  f"{bf16_bound(want[:, real], cfg)} (bf16_bound)")
 
     # decode vs prefill: step t's logits against a fresh flash prefill over
-    # the prompt and the t + 1 tokens fed so far.  Both are bf16 evaluations
-    # of the same function, each about err_dense from float32, so they may
-    # differ by twice that; 0.02 covers the max over other positions.  MoE:
+    # the prompt and the t + 1 tokens fed so far (the same frames or
+    # patches).  Both are bf16 evaluations of the same function, each about
+    # err_dense from float32, so they may differ by twice that; 0.02 covers
+    # the max over other positions.  MoE:
     # a prefill may drop routes past capacity (a decode step never does), and
     # through attention a drop at any position reaches the newest token; so
     # only rows where neither prefill dropped a route are held, and at least
@@ -1186,15 +1221,14 @@ def serve_config(name: str, *, batch: int, prompt: int, steps: int, checked_step
     drops_main = None
     if moe:
         with MoeDrops(batch) as counter:
-            prefill(params, {"tokens": tokens})
+            prefill(params, inputs)
         drops_main = counter.rows.tolist()
     before = fa.launch_counts()["flash_attention_cuda"]
     worst, held, skipped = 0.0, {}, {}
     for t, got in kept.items():
-        prefix = torch.cat([tokens, generated[:, :t + 1]], dim=1)
-        fresh_step = api.make_prefill_step(cfg, max_len=prefix.shape[1])
+        prefix = torch.cat([tokens, generated[:, :t + 1].to(tokens.dtype)], dim=1)
         with MoeDrops(batch) as counter:
-            fresh = fresh_step(params, {"tokens": prefix})[0]
+            fresh = api.make_prefill_step(cfg)(params, dict(inputs, tokens=prefix))[0]
         rows = list(range(batch))
         if moe:
             fresh_drops = counter.rows.tolist()
@@ -1213,7 +1247,7 @@ def serve_config(name: str, *, batch: int, prompt: int, steps: int, checked_step
     if fa.launch_counts()["flash_attention_cuda"] - before != expected * len(kept):
         raise AssertionError(f"{name}: a fresh prefill did not launch B6 {expected} times")
 
-    lines = profile_serving(prefill, serve, params, tokens) if profile else {}
+    lines = profile_serving(prefill, serve, params, inputs) if profile else {}
     full = get_config(name)
     cut = {f"{k}": f"{v} of {getattr(full, k)}" for k, v in overrides.items()}
     family = {}
@@ -1228,6 +1262,13 @@ def serve_config(name: str, *, batch: int, prompt: int, steps: int, checked_step
     elif expected == 0:
         family = dict(slstm_steps=prompt * xlstm.block_types(cfg).count("slstm"),
                       bf16_bound=bf16_bound(want[:, real], cfg))
+    elif cfg.frontend is not None:
+        family = dict(frontend=cfg.frontend, frontend_tokens=cfg.frontend_tokens,
+                      text_tokens=tokens.shape[1], encoder_layers=cfg.encoder_layers,
+                      b6_per_prefill=json.dumps(
+                          {"encoder": cfg.encoder_layers, "decoder_self": cfg.n_layers,
+                           "cross": cfg.n_layers} if cfg.is_encdec else
+                          {"decoder": cfg.n_layers}))
     log(tag, config=cfg.name, params=n_params, layers=cfg.n_layers,
         **({"cut": json.dumps(cut)} if cut else {}),
         d_model=cfg.d_model, heads=f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim_}",
@@ -1289,6 +1330,27 @@ def zoo_serve() -> int:
     for seed, (name, kw) in enumerate(runs, start=17):
         launches += serve_config(name, seed=seed, tag="zoo_serve", profile=True, **kw)
     log("zoo_serve_path", b6_launches=launches, wall_s=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
+def frontend_serve() -> dict[str, int]:
+    """Phase 18: the encoder-decoder and vision-stub families served at full
+    width, each its own main path (counts set to 0 before each): whisper-tiny
+    (8 prompts of 432 tokens over 1 500 frames: 448, its text context, with
+    the decode steps) and phi-3-vision-4.2b whole (4 prompts of 576 patches
+    and 1 472 tokens); returns B6's launches by path.  ``serve_config``
+    frees each config's memory before the next."""
+    t0 = time.perf_counter()
+    launches = {
+        "encdec_serve": serve_config("whisper_tiny", batch=8, prompt=432, steps=16,
+                                     checked_steps=(0, 15), seed=18, tag="frontend_serve",
+                                     profile=True),
+        "vlm_serve": serve_config("phi_3_vision_4_2b", batch=4, prompt=2048, steps=16,
+                                  checked_steps=(0, 15), seed=19, tag="frontend_serve",
+                                  profile=True),
+    }
+    log("frontend_serve_path", b6_launches=json.dumps(launches),
+        wall_s=f"{time.perf_counter() - t0:.1f}")
     return launches
 
 
@@ -1395,12 +1457,13 @@ def profile_window(fn) -> dict:
             "top_kernels_ms": json.dumps({n[:60]: round(us / 1e3, 3) for n, us in top})}
 
 
-def profile_serving(prefill, serve, params, tokens, steps: int = 8) -> dict:
-    """:func:`profile_window` of one prefill and of ``steps`` decode steps."""
+def profile_serving(prefill, serve, params, inputs, steps: int = 8) -> dict:
+    """:func:`profile_window` of one prefill of the batch ``inputs`` and of
+    ``steps`` decode steps."""
     state = {}
 
     def run_prefill():
-        state["logits"], state["cache"] = prefill(params, {"tokens": tokens})
+        state["logits"], state["cache"] = prefill(params, inputs)
 
     def run_decode():
         for _ in range(steps):
@@ -2757,6 +2820,9 @@ def main() -> int:
     # -- phase 17: the MoE, hybrid and xLSTM families, served -------------------------
     launches_zoo = zoo_serve()
 
+    # -- phase 18: the enc-dec and vision-stub families, served -----------------------
+    launches_frontend = frontend_serve()
+
     kernels = []
     launches = {"success_tails_cuda_w": launches_main["success_tails_cuda_w"],
                 "success_tails_cuda": launches_static["success_tails_cuda"],
@@ -2766,7 +2832,8 @@ def main() -> int:
                "coded": launches_coded, "serve": {"flash_attention_cuda": launches_lm},
                "faults": launches_faults, "serving": launches_serving, "obs": launches_obs,
                "speed": launches_speed, "dense_serve": {"flash_attention_cuda": launches_dense},
-               "train": launches_train, "zoo_serve": {"flash_attention_cuda": launches_zoo}}
+               "train": launches_train, "zoo_serve": {"flash_attention_cuda": launches_zoo},
+               **{path: {"flash_attention_cuda": n} for path, n in launches_frontend.items()}}
     for name, (source, replaces) in KERNELS.items():
         entry = record[name]
         kernels.append({

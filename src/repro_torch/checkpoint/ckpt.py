@@ -13,7 +13,8 @@ written by either package restores into the other::
 A tree is a tensor, a dict (dotted keys stand for nested
 dicts, as the trainer's flat gradient and moment dicts do), a NamedTuple
 (``TrainState``) or a module with ``tensors()`` / ``from_tensors``
-(``models.lm.ParamTree``: the decoder LM, hybrid and xLSTM parameters);
+(``models.lm.ParamTree``: the decoder LM, encoder-decoder, hybrid and xLSTM
+parameters);
 leaves are taken in JAX's order.
 
 Fault-tolerance contract:

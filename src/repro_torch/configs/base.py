@@ -1,7 +1,7 @@
 """Config system of the port: the JAX package's ``ArchConfig`` /
 ``ShapeCell`` dataclasses and the assigned shape cells, copied field for
-field so a config carries across by name, and a registry that holds only
-the architectures the port has.
+field so a config carries across by name, and a registry of the ten
+architectures the JAX package lists.
 
 ``paper_lea`` (the paper's own workloads, ``SIM`` / ``EC2``) lives beside
 these modules and is not an ``ArchConfig``; :func:`list_configs` lists the
@@ -160,10 +160,10 @@ SHAPE_CELLS: dict[str, ShapeCell] = {
     "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
 }
 
-# The architectures the port holds (the decoder-only LMs: dense, MoE, hybrid
-# and xLSTM); the JAX package lists ten, with whisper and phi-3-vision.
-_ARCHS = ("qwen3_0_6b", "nemotron_4_340b", "yi_9b", "llama3_2_3b", "zamba2_7b",
-          "mixtral_8x22b", "olmoe_1b_7b", "xlstm_125m")
+# The architectures, in the JAX package's order: dense, the vision stub,
+# encoder-decoder, hybrid, MoE and xLSTM.
+_ARCHS = ("qwen3_0_6b", "nemotron_4_340b", "yi_9b", "llama3_2_3b", "phi_3_vision_4_2b",
+          "whisper_tiny", "zamba2_7b", "mixtral_8x22b", "olmoe_1b_7b", "xlstm_125m")
 
 
 def list_configs() -> tuple[str, ...]:

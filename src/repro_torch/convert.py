@@ -121,8 +121,9 @@ def _named(tree, prefix: str = "") -> dict:
 
 def model_params(np_params: dict, cfg, device=None) -> ParamTree:
     """The port's parameter module for ``cfg``'s family (as ``get_model``
-    dispatches: :class:`DecoderLM` for dense and MoE, :class:`HybridLM`,
-    :class:`XLSTMLM`) from the JAX ``init_params`` tree given as numpy
+    dispatches: :class:`DecoderLM` for dense, MoE and the vision stub
+    (``patch_proj``), :class:`EncDecLM`, :class:`HybridLM`, :class:`XLSTMLM`)
+    from the JAX ``init_params`` tree given as numpy
     arrays (``jax.tree.map(np.asarray, params)``): the same names, layouts
     and dtypes, tensor for tensor (bf16 through float32, exactly).  Names
     and shapes are held to those the port's own ``init_params`` makes for

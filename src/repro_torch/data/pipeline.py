@@ -7,9 +7,11 @@ sample-exact.  The corpus is a seeded Zipf-ish integer stream.  Every row
 comes from numpy's ``default_rng`` seeded by (seed, step, host, row), so the
 tokens are bit-equal to the JAX package's for the same arguments.
 
-The stub frontends' float inputs (JAX's ``extra_specs``) are not ported:
-JAX seeds them with Python's salted ``hash(name)``, which differs between
-processes unless ``PYTHONHASHSEED`` is set.
+The stub frontends' float inputs (``extra_specs``: ``frames``, ``patches``)
+are standard normal float32, one stream a name and step, seeded as JAX
+seeds them, with Python's ``hash(name)``.  That hash is salted per process
+unless ``PYTHONHASHSEED`` is set, so, as in JAX, these inputs are bit-equal
+to the JAX package's within one process and differ between processes.
 """
 
 from __future__ import annotations
@@ -35,7 +37,12 @@ class PipelineState:
 class DataPipeline:
     """Yields ``{"tokens": (global_batch / host_count, seq)}`` int32 numpy
     batches, deterministically; ``host_id`` / ``host_count`` carve the global
-    batch so each host touches only its rows."""
+    batch so each host touches only its rows.
+
+    ``extra_specs`` maps a name to anything with a ``.shape`` (the meta
+    tensors of ``models.api.input_specs``); each batch then also holds that
+    name as float32 (host batch, ``*shape[1:]``), standard normal (see the
+    module's note on its seed)."""
 
     def __init__(self, vocab_size: int, global_batch: int, seq_len: int,
                  *, seed: int = 0, host_id: int = 0, host_count: int = 1,
@@ -43,15 +50,13 @@ class DataPipeline:
         if global_batch % host_count:
             raise ValueError(f"global batch {global_batch} does not split over "
                              f"{host_count} hosts")
-        if extra_specs:
-            raise NotImplementedError(
-                "extra_specs (the stub frontends' inputs) are not ported yet")
         self.vocab = vocab_size
         self.global_batch = global_batch
         self.seq = seq_len
         self.host_id = host_id
         self.host_count = host_count
         self.state = PipelineState(seed=seed)
+        self.extra_specs = extra_specs or {}
 
     @property
     def host_batch(self) -> int:
@@ -65,7 +70,12 @@ class DataPipeline:
             # Zipf-ish marginal over the vocab: realistic embedding access skew
             z = rng.zipf(1.3, size=self.seq).astype(np.int64)
             rows.append((z % self.vocab).astype(np.int32))
-        return {"tokens": np.stack(rows)}
+        out = {"tokens": np.stack(rows)}
+        for name, sd in self.extra_specs.items():
+            rng = np.random.default_rng(self.state.seed * 7_000_003 + base + hash(name) % 1000)
+            shape = (self.host_batch,) + tuple(sd.shape[1:])
+            out[name] = rng.standard_normal(shape).astype(np.float32)
+        return out
 
     def next(self) -> dict[str, np.ndarray]:
         batch = self._batch_at(self.state.step)

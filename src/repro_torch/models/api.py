@@ -2,18 +2,22 @@
 functions (``repro/models/api.py``).
 
   * :func:`get_model`         — family -> (init_params, train_loss, prefill,
-                                decode_step, init_cache): ``lm`` (dense and
-                                MoE), ``hybrid`` and ``xlstm``;
+                                decode_step, init_cache): ``encdec``,
+                                ``hybrid``, ``xlstm`` and ``lm`` (dense, MoE
+                                and the vision stub);
   * :func:`attention_calls`   — full-sequence attention calls a prefill
                                 makes (B6's launches under ``flash``);
   * :func:`make_train_step`   — loss + grad + microbatch accumulation +
                                 AdamW; :func:`init_state` its state;
   * :func:`make_prefill_step` / :func:`make_serve_step` — serving;
-  * :func:`make_batch`        — a random batch from a ``torch.Generator``.
+  * :func:`input_specs`       — the inputs of a cell as meta-device tensors
+                                (shapes and dtypes, no storage);
+  * :func:`make_batch`        — a random batch of those inputs from a
+                                ``torch.Generator``.
 
-Every step function runs under :func:`float32_split_k_sums`.  The input
-specs, ``grad_shardings``, the ``abstract_*`` shapes and the sharding rules
-wait for the multi-card slice.
+Every step function runs under :func:`float32_split_k_sums`.
+``grad_shardings``, the ``abstract_*`` shapes and the sharding rules wait
+for the multi-card slice.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from repro_torch.kernels.flash_attention.ops import NO_BACKWARD
 from repro_torch.optim import TrainState, adamw_init, adamw_update, cosine_warmup
 from repro_torch.runtime.fault_tolerance import split_batch
 
-from . import hybrid, lm, xlstm
+from . import encdec, hybrid, lm, xlstm
 
 
 class Model(NamedTuple):
@@ -44,14 +48,10 @@ class Model(NamedTuple):
 
 def _family(cfg: ArchConfig):
     """The model module, in JAX's order: encoder-decoder, hybrid, xLSTM
-    (``ssm`` with ``d_ff == 0``), else the decoder LM.  Encoder-decoder and
-    the stub frontends raise ``NotImplementedError``: they come with the
-    second part of ROADMAP A7b."""
-    if cfg.is_encdec or cfg.frontend is not None:
-        family = "encoder-decoder" if cfg.is_encdec else f"{cfg.frontend} frontend"
-        raise NotImplementedError(
-            f"{cfg.name}: the {family} models are not ported yet; the second part "
-            "of ROADMAP A7b brings them")
+    (``ssm`` with ``d_ff == 0``), else the decoder LM (which holds the
+    vision stub)."""
+    if cfg.is_encdec:
+        return encdec
     if cfg.family == "hybrid":
         return hybrid
     if cfg.family == "ssm" and cfg.d_ff == 0:
@@ -69,27 +69,54 @@ def get_model(cfg: ArchConfig) -> Model:
 
 def attention_calls(cfg: ArchConfig) -> int:
     """Full-sequence attention calls one prefill makes, so B6's launches
-    under ``attn_impl="flash"``: one a layer for the decoder LM, one an
-    application of the shared block for the hybrid
-    (``hybrid.n_attn_apps``), none for xLSTM."""
+    under ``attn_impl="flash"``: one a layer for the decoder LM (the vision
+    stub included), one an application of the shared block for the hybrid
+    (``hybrid.n_attn_apps``), none for xLSTM, and for the encoder-decoder
+    one an encoder layer and two a decoder layer (self and cross)."""
     mod = _family(cfg)
+    if mod is encdec:
+        return cfg.encoder_layers + 2 * cfg.n_layers
     if mod is hybrid:
         return hybrid.n_attn_apps(cfg)
     return 0 if mod is xlstm else cfg.n_layers
 
 
+def input_specs(cfg: ArchConfig, cell: ShapeCell) -> dict[str, torch.Tensor]:
+    """A cell's inputs as meta-device tensors: JAX's ``ShapeDtypeStruct``
+    stand-ins, the same shapes and dtypes, no storage.  A train or
+    prefill cell gives ``tokens`` (B, S) int32; the vision stub's ``seq_len``
+    counts its patches, so its ``tokens`` are (B, S - P) and ``patches``
+    (B, P, d); the audio stub adds ``frames`` (B, T, d); both in
+    ``cfg.dtype``.  A decode cell gives ``next_token`` (B,) int32."""
+    b, s = cell.global_batch, cell.seq_len
+    spec = lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta")
+    i32, f = torch.int32, getattr(torch, cfg.dtype)
+    if cell.kind not in ("train", "prefill"):
+        return {"next_token": spec((b,), i32)}
+    front = (b, cfg.frontend_tokens, cfg.d_model)
+    if cfg.frontend == "vision_stub":
+        return {"tokens": spec((b, s - cfg.frontend_tokens), i32), "patches": spec(front, f)}
+    if cfg.frontend == "audio_stub":
+        return {"tokens": spec((b, s), i32), "frames": spec(front, f)}
+    return {"tokens": spec((b, s), i32)}
+
+
 def make_batch(cfg: ArchConfig, cell: ShapeCell, generator: torch.Generator,
                device=None) -> dict[str, torch.Tensor]:
-    """Random tokens in [0, vocab_size): (B, S) for a train or prefill cell,
-    ``next_token`` (B,) for a decode cell.  ``generator`` lives on ``device``."""
+    """A random batch of :func:`input_specs`' inputs, drawn in their order
+    from ``generator`` (which lives on ``device``): integers in [0,
+    ``vocab_size``), float inputs standard normal in float32 cast to their
+    dtype."""
     dev = resolve_device(device)
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend is not ported yet")
-    draw = lambda *shape: torch.randint(0, cfg.vocab_size, shape, generator=generator,
-                                        device=dev)
-    if cell.kind in ("train", "prefill"):
-        return {"tokens": draw(cell.global_batch, cell.seq_len)}
-    return {"next_token": draw(cell.global_batch)}
+    out = {}
+    for name, sd in input_specs(cfg, cell).items():
+        if sd.dtype == torch.int32:
+            out[name] = torch.randint(0, cfg.vocab_size, sd.shape, generator=generator,
+                                      dtype=torch.int32, device=dev)
+        else:
+            out[name] = torch.randn(sd.shape, generator=generator, dtype=torch.float32,
+                                    device=dev).to(sd.dtype)
+    return out
 
 
 @contextlib.contextmanager
@@ -214,5 +241,6 @@ def make_serve_step(cfg: ArchConfig):
     return serve_step
 
 
-__all__ = ["Model", "attention_calls", "float32_split_k_sums", "get_model", "init_state", "loss_and_grads",
-           "make_batch", "make_prefill_step", "make_serve_step", "make_train_step"]
+__all__ = ["Model", "attention_calls", "float32_split_k_sums", "get_model", "init_state",
+           "input_specs", "loss_and_grads", "make_batch", "make_prefill_step",
+           "make_serve_step", "make_train_step"]

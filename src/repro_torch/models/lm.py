@@ -1,11 +1,12 @@
-"""Decoder-only LM, dense or MoE: parameters, prefill and cached decode
-(``repro/models/lm.py``, the text path of its dense and MoE families).
+"""Decoder-only LM, dense, MoE or with the vision stub: parameters, prefill
+and cached decode (``repro/models/lm.py``).
 
 Parameters live in a :class:`DecoderLM` module under the JAX names and
 layouts: ``embed`` (V, d), ``blocks`` (each tensor stacked over layers,
-(L, ...)), ``ln_f`` (d,) and ``lm_head`` (d, V) unless the embeddings are
-tied; ``params["embed"]`` reads as in JAX, so carrying JAX weights over is
-a copy, name for name (``repro_torch.convert.model_params``).
+(L, ...)), ``ln_f`` (d,), ``lm_head`` (d, V) unless the embeddings are
+tied and ``patch_proj`` (d, d) for the vision stub; ``params["embed"]``
+reads as in JAX, so carrying JAX weights over is a copy, name for name
+(``repro_torch.convert.model_params``).
 
 The JAX package scans over the stacked layers; the port loops over them.
 The KV cache is the JAX dict ``{"k": (L, B, Hkv, S, Dh), "v": ..., "pos"}``,
@@ -24,8 +25,14 @@ nests ``jax.checkpoint``).  Parameters are created frozen; a trainer calls
 
 A block's MLP is :func:`layers.moe` when ``cfg.n_experts`` is set (its
 ``router`` (L, d, E), ``w_gate`` / ``w_up`` (L, E, d, f) and ``w_down``
-(L, E, f, d)), else :func:`layers.mlp`.  The vision / audio stub frontends
-wait for the next slice (ROADMAP A7b).
+(L, E, f, d)), else :func:`layers.mlp`.
+
+The vision stub (``cfg.frontend == "vision_stub"``, phi-3-vision) reads
+``batch["patches"]`` (B, P, d), precomputed patch embeddings: cast to the
+model's dtype, projected by ``patch_proj`` (d, d) and prepended to the text
+embeddings (:func:`_embed_sequence`).  Positions run over patches and text,
+0 .. S_total - 1; the cache's ``pos`` is S_total, so ``max_len`` counts the
+patches; the loss covers the text positions only.
 """
 
 from __future__ import annotations
@@ -101,10 +108,11 @@ class DecoderLM(ParamTree):
         self.embed = frozen(tree["embed"])
         self.blocks = nn.ParameterDict({k: frozen(v) for k, v in tree["blocks"].items()})
         self.ln_f = frozen(tree["ln_f"])
-        if tree.get("lm_head") is None:
-            self.register_parameter("lm_head", None)
-        else:
-            self.lm_head = frozen(tree["lm_head"])
+        for name in ("lm_head", "patch_proj"):      # untied head; the vision stub's
+            if tree.get(name) is None:
+                self.register_parameter(name, None)
+            else:
+                setattr(self, name, frozen(tree[name]))
 
     def layer(self, i: int) -> dict[str, torch.Tensor]:
         """Layer ``i``'s block tensors (views of the stacked ones)."""
@@ -113,13 +121,6 @@ class DecoderLM(ParamTree):
     def layers(self) -> list[dict[str, torch.Tensor]]:
         """Every layer's block tensors (:func:`stacked_layers`)."""
         return stacked_layers(dict(self.blocks.items()))
-
-
-def _check_text(cfg) -> None:
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            "(the second part of ROADMAP A7b)")
 
 
 # ---------------------------------------------------------------------------
@@ -150,18 +151,15 @@ class ParamDraws:
         return torch.zeros(shape, dtype=dtype or self.dtype, device=self.device)
 
 
-def init_params(generator: torch.Generator, cfg, device=None) -> DecoderLM:
-    """Random parameters from the JAX package's distributions (normal times
-    0.02, output projections times 0.02 / sqrt(2 L), norms at 1), drawn in
-    float32 from ``generator`` and cast to ``cfg.dtype``
-    (:class:`ParamDraws`)."""
-    _check_text(cfg)
-    draw = ParamDraws(generator, cfg, device)
+def dense_block_params(draw: ParamDraws, cfg, n: int) -> dict[str, torch.Tensor]:
+    """``n`` stacked attention + MLP blocks (JAX's ``_dense_block_params``):
+    normal times 0.02, the output projections times 0.02 / sqrt(2
+    ``cfg.n_layers``) whatever ``n`` is (the encoder's stack too), norms at
+    1."""
     normal, ones = draw.normal, draw.ones
-    d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab
-    hq, hkv, hd, n = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.n_layers
-
-    out_scale = 0.02 / math.sqrt(2 * n)
+    d, f = cfg.d_model, cfg.d_ff
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
     blocks = {
         "ln1": ones(n, d), "ln2": ones(n, d),
         "wq": normal(n, d, hq * hd), "wk": normal(n, d, hkv * hd),
@@ -181,9 +179,22 @@ def init_params(generator: torch.Generator, cfg, device=None) -> DecoderLM:
             blocks["w_gate"] = normal(n, d, f)
         blocks["w_up"] = normal(n, d, f)
         blocks["w_down"] = normal(n, f, d, scale=out_scale)
-    tree = {"embed": normal(v, d), "blocks": blocks, "ln_f": ones(d)}
+    return blocks
+
+
+def init_params(generator: torch.Generator, cfg, device=None) -> DecoderLM:
+    """Random parameters from the JAX package's distributions
+    (:func:`dense_block_params`; the embedding, head and ``patch_proj`` at
+    0.02), drawn in float32 from ``generator`` and cast to ``cfg.dtype``
+    (:class:`ParamDraws`)."""
+    draw = ParamDraws(generator, cfg, device)
+    d, v = cfg.d_model, cfg.padded_vocab
+    blocks = dense_block_params(draw, cfg, cfg.n_layers)
+    tree = {"embed": draw.normal(v, d), "blocks": blocks, "ln_f": draw.ones(d)}
     if not cfg.tie_embeddings:
-        tree["lm_head"] = normal(d, v)
+        tree["lm_head"] = draw.normal(d, v)
+    if cfg.frontend == "vision_stub":
+        tree["patch_proj"] = draw.normal(d, d)
     return DecoderLM(tree)
 
 
@@ -197,10 +208,13 @@ def _embed(params: DecoderLM, tokens: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def _embed_sequence(params: DecoderLM, batch, cfg):
-    """Tokens -> (B, S, d), and the number of prefix (non-text) positions
-    (0: the stub frontends are not ported)."""
-    _check_text(cfg)
-    return _embed(params, batch["tokens"], cfg), 0
+    """Tokens (and, for the vision stub, the projected patches before them)
+    -> (B, S_total, d), and the number of prefix (non-text) positions."""
+    x = _embed(params, batch["tokens"], cfg)
+    if cfg.frontend != "vision_stub":
+        return x, 0
+    patches = L.dot(batch["patches"].to(x.dtype), params["patch_proj"])   # (B, P, d)
+    return torch.cat([patches, x], dim=1), patches.shape[1]
 
 
 def _logits(params: DecoderLM, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -335,5 +349,5 @@ def decode_step(params: DecoderLM, batch, cache: dict, cfg):
     return logits, cache
 
 
-__all__ = ["DecoderLM", "ParamDraws", "ParamTree", "decode_step", "init_cache", "init_params",
-           "next_token_loss", "prefill", "train_loss"]
+__all__ = ["DecoderLM", "ParamDraws", "ParamTree", "decode_step", "dense_block_params",
+           "init_cache", "init_params", "next_token_loss", "prefill", "train_loss"]

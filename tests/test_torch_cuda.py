@@ -764,10 +764,12 @@ def test_full_width_qwen3_train_step_on_the_card(cuda_device):
     assert not torch.equal(state.params["embed"].detach(), before)
 
 
-# the new families' SMOKE configs (float32): zamba2 with a tail group, and
-# mixtral on 40 tokens, past its 32-token window
+# the new families' SMOKE configs (float32): zamba2 with a tail group,
+# mixtral on 40 tokens, past its 32-token window, whisper over its 16 frames
+# and phi-3-vision with its 8 patches first
 ZOO_SMOKE = {"olmoe": ("olmoe_1b_7b", {}), "mixtral": ("mixtral_8x22b", {}),
-             "zamba2-tail": ("zamba2_7b", dict(n_layers=5)), "xlstm": ("xlstm_125m", {})}
+             "zamba2-tail": ("zamba2_7b", dict(n_layers=5)), "xlstm": ("xlstm_125m", {}),
+             "whisper": ("whisper_tiny", {}), "phi3v": ("phi_3_vision_4_2b", {})}
 
 
 def _zoo_smoke(which, **extra):
@@ -786,19 +788,20 @@ def test_zoo_smoke_serving_on_the_card_matches_the_cpu(cuda_device, which):
     """Each new family through the flash prefill and 4 decode steps: the card
     within 1e-4 of the CPU (float32 sums in other orders, logits of order
     0.5), B6 launched ``attention_calls`` times in the prefill (olmoe and
-    mixtral 2, zamba2 3, xLSTM 0) and never in decode."""
+    mixtral 2, zamba2 3, xLSTM 0, whisper 6, phi-3-vision 2) and never in
+    decode."""
     from repro_torch.configs import ShapeCell
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import api
     cfg, params = _zoo_smoke(which, attn_impl="flash")
-    tokens = api.make_batch(cfg, ShapeCell("c", 40, 3, "prefill"),
-                            torch.Generator().manual_seed(1), device="cpu")["tokens"]
+    batch = api.make_batch(cfg, ShapeCell("c", 40, 3, "prefill"),
+                           torch.Generator().manual_seed(1), device="cpu")
     prefill, serve = api.make_prefill_step(cfg, max_len=48), api.make_serve_step(cfg)
     on_card = copy.deepcopy(params).to(cuda_device)
     before = fa.launch_counts()["flash_attention_cuda"]
-    got, cache = prefill(on_card, {"tokens": tokens.to(cuda_device)})
+    got, cache = prefill(on_card, {k: t.to(cuda_device) for k, t in batch.items()})
     assert fa.launch_counts()["flash_attention_cuda"] == before + api.attention_calls(cfg)
-    want, cache_cpu = prefill(params, {"tokens": tokens})
+    want, cache_cpu = prefill(params, batch)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
     for _ in range(4):
         tok = want.argmax(-1)
@@ -809,7 +812,7 @@ def test_zoo_smoke_serving_on_the_card_matches_the_cpu(cuda_device, which):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["olmoe", "zamba2-tail", "xlstm"])
+@pytest.mark.parametrize("which", ["olmoe", "zamba2-tail", "xlstm", "whisper", "phi3v"])
 def test_zoo_smoke_train_step_on_the_card_matches_the_cpu(cuda_device, which):
     """One ``make_train_step`` step of each new family on the card and on
     the CPU from the same state and batch: loss and gradient norm within
@@ -831,3 +834,34 @@ def test_zoo_smoke_train_step_on_the_card_matches_the_cpu(cuda_device, which):
     for key in ("loss", "grad_norm"):
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-4, atol=0)
     assert all(bool(torch.isfinite(t).all()) for t in got_state.params.tensors().values())
+
+
+@pytest.mark.cuda
+def test_full_width_whisper_train_step_on_the_card(cuda_device):
+    """One ``make_train_step`` step of ``whisper_tiny`` at full width (remat,
+    bf16, 8 microbatches of one 448-token text over 1 500 frames): a finite
+    loss near ln(vocab) at random init, the parameters move; prints a second
+    step's time and peak memory."""
+    import math
+    import time
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.models import api
+    cfg = get_config("whisper_tiny")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    state = api.init_state(cfg, gen, device=cuda_device)
+    before = state.params["embed"].detach().clone()
+    batch = api.make_batch(cfg, ShapeCell("t", 448, 8, "train"), gen, device=cuda_device)
+    step = api.make_train_step(cfg)
+    state, metrics = step(state, batch)
+    loss = float(metrics["loss"])
+    assert math.isfinite(loss) and abs(loss - math.log(cfg.vocab_size)) < 1.0
+    assert math.isfinite(float(metrics["grad_norm"])) and int(state.step) == 1
+    assert not torch.equal(state.params["embed"].detach(), before)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    second = float(metrics["loss"])                      # a host read: the step has ended
+    print(f"[whisper_train_step] ms={(time.perf_counter() - t0) * 1e3:.1f} loss={second:.4f} "
+          f"peak_memory_gib={torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"device={torch.cuda.get_device_name(0)!r}")
+    assert math.isfinite(second)

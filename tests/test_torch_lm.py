@@ -25,7 +25,7 @@ from repro.models import api as japi
 from repro.models import layers as JL
 from repro_torch import convert
 from repro_torch.configs import base as tbase
-from repro_torch.models import api, layers, lm
+from repro_torch.models import api, encdec, layers, lm
 
 TOL = 1e-5
 IMPLS = ("ref", "blockwise", "flash")
@@ -79,25 +79,31 @@ def test_configs_are_the_jax_package_numbers(name):
     theirs = importlib.import_module(f"repro.configs.{name}")
     for which in ("CONFIG", "SMOKE"):
         assert dataclasses.asdict(getattr(mine, which)) == dataclasses.asdict(getattr(theirs, which))
-    decoder_only = set(ARCHS) | {"mixtral_8x22b", "olmoe_1b_7b", "zamba2_7b", "xlstm_125m"}
-    assert set(tbase.list_configs()) == decoder_only <= set(jbase.list_configs())
+    assert tbase.list_configs() == jbase.list_configs()        # all ten, in JAX's order
     dashed = getattr(theirs, "CONFIG").name
     assert tbase.get_config(dashed, attn_impl="flash").attn_impl == "flash"
     assert tbase.get_config(name).n_params() == jbase.get_config(name).n_params()
     assert tbase.SHAPE_CELLS == {k: tbase.ShapeCell(**dataclasses.asdict(v))
                                  for k, v in jbase.SHAPE_CELLS.items()}
-    with pytest.raises(ValueError, match="whisper_tiny"):
-        tbase.get_config("whisper_tiny")
+    whisper = tbase.get_config("whisper_tiny")
+    assert dataclasses.asdict(whisper) == dataclasses.asdict(jbase.get_config("whisper_tiny"))
+    with pytest.raises(ValueError, match="no config"):
+        tbase.get_config("whisper_large")
 
 
 def test_unported_families_raise(cfg):
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        api.get_model(dataclasses.replace(cfg, encoder_layers=2))
-    with pytest.raises(NotImplementedError, match="vision_stub frontend"):
-        api.get_model(dataclasses.replace(cfg, family="vlm", frontend="vision_stub"))
-    with pytest.raises(NotImplementedError, match="audio_stub frontend"):
-        lm.init_params(torch.Generator(), dataclasses.replace(cfg, frontend="audio_stub"),
-                       device="cpu")
+    """Formerly: enc-dec and the stub frontends raised.  Now each dense
+    config with the enc-dec fields goes to ``encdec`` (B6 launched once an
+    encoder layer and twice a decoder layer), with the vision stub's to
+    ``lm`` (once a layer), and ``lm.init_params`` adds ``patch_proj``."""
+    enc = dataclasses.replace(cfg, encoder_layers=3, frontend="audio_stub", frontend_tokens=16)
+    assert api.get_model(enc).prefill is encdec.prefill
+    assert api.attention_calls(enc) == 3 + 2 * cfg.n_layers
+    vlm = dataclasses.replace(cfg, family="vlm", frontend="vision_stub", frontend_tokens=8)
+    assert api.get_model(vlm).prefill is lm.prefill
+    assert api.attention_calls(vlm) == cfg.n_layers
+    params = lm.init_params(torch.Generator().manual_seed(0), vlm, device="cpu")
+    assert tuple(params["patch_proj"].shape) == (cfg.d_model, cfg.d_model)
 
 
 def test_init_params_has_the_jax_tree(jparams, cfg):

@@ -197,16 +197,22 @@ def test_data_pipeline_batches_are_the_jax_bits(seed):
 
 
 def test_data_pipeline_cursor_restores_and_refuses_extra_specs():
-    pipe = DataPipeline(100, 4, 8, seed=2)
-    first = [pipe.next()["tokens"] for _ in range(3)]
+    """The cursor restores; formerly ``extra_specs`` raised, now the
+    pipeline takes them (any ``.shape``: a meta tensor or a numpy array)
+    and a restored cursor replays the extra stream too."""
+    patches = torch.empty((4, 3, 5), device="meta")
+    pipe = DataPipeline(100, 4, 8, seed=2, extra_specs={"patches": patches})
+    first = [pipe.next() for _ in range(3)]
+    assert first[0]["patches"].shape == (4, 3, 5) and first[0]["patches"].dtype == np.float32
     pipe.restore({"step": 1, "seed": 2})
-    assert np.array_equal(pipe.next()["tokens"], first[1])
+    again = pipe.next()
+    assert all(np.array_equal(again[k], first[1][k]) for k in ("tokens", "patches"))
     pipe.restore(PipelineState(step=2, seed=2))
-    assert np.array_equal(pipe.next()["tokens"], first[2])
+    assert np.array_equal(pipe.next()["tokens"], first[2]["tokens"])
     with pytest.raises(ValueError, match="hosts"):
         DataPipeline(100, 5, 8, host_count=2)
-    with pytest.raises(NotImplementedError, match="extra_specs"):
-        DataPipeline(100, 4, 8, extra_specs={"patches": None})
+    plain = DataPipeline(100, 4, 8, seed=2, extra_specs={"frames": np.zeros((9, 3, 5))})
+    assert np.array_equal(plain.next()["tokens"], first[0]["tokens"])
 
 
 @pytest.mark.parametrize("kind", ["int8", "topk", "none"])

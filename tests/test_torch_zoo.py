@@ -43,7 +43,7 @@ from repro.models import layers as JL
 from repro.optim import adamw_init as jax_adamw_init
 from repro_torch import checkpoint, convert
 from repro_torch.configs import base as tbase
-from repro_torch.models import api, hybrid, layers, lm, xlstm
+from repro_torch.models import api, encdec, hybrid, layers, lm, xlstm
 from repro_torch.optim import cosine_warmup
 
 TOL = 1e-5
@@ -162,23 +162,21 @@ def test_configs_are_the_jax_package_numbers(name):
 
 
 def test_dispatch_and_attention_calls():
-    """``get_model`` takes JAX's order; enc-dec and the stub frontends keep
-    raising, and their configs stay out of the registry; ``attention_calls``
-    is B6's launches a flash prefill."""
+    """``get_model`` takes JAX's order, every config of the registry
+    included (whisper to ``encdec``, phi-3-vision to ``lm``);
+    ``attention_calls`` is B6's launches a flash prefill."""
     want = {"olmoe_1b_7b": (lm, 16), "mixtral_8x22b": (lm, 56), "zamba2_7b": (hybrid, 14),
-            "xlstm_125m": (xlstm, 0), "qwen3_0_6b": (lm, 28)}
+            "xlstm_125m": (xlstm, 0), "qwen3_0_6b": (lm, 28),
+            "whisper_tiny": (encdec, 12), "phi_3_vision_4_2b": (lm, 32)}
     for name, (mod, calls) in want.items():
         full = tbase.get_config(name)
         assert api.get_model(full).prefill is mod.prefill
         assert api.attention_calls(full) == calls
     assert hybrid.n_attn_apps(tbase.get_smoke_config("zamba2_7b", n_layers=5)) == 3
     for name in ("whisper_tiny", "phi_3_vision_4_2b"):
-        with pytest.raises(ValueError, match=name):
-            tbase.get_config(name)
-        jcfg = jbase.get_config(name)
-        theirs = tbase.ArchConfig(**dataclasses.asdict(jcfg))
-        with pytest.raises(NotImplementedError, match="second part of ROADMAP A7b"):
-            api.get_model(theirs)
+        theirs = tbase.ArchConfig(**dataclasses.asdict(jbase.get_config(name)))
+        assert theirs == tbase.get_config(name)
+        assert api.get_model(theirs).init_params is want[name][0].init_params
 
 
 def test_init_params_has_the_jax_tree(jparams, cfg):
