@@ -88,7 +88,8 @@ Phases, one line each (any failure raises and exits non-zero):
      zamba2's (4, 32, 2048, 112) over 32), and phase 18's (whisper's
      non-causal encoder (8, 6, 1500, 64), its non-causal cross-attention
      q (8, 6, 432, 64) over k, v (8, 6, 1500, 64), phi-3-vision's
-     (4, 32, 2048, 96) over 32);
+     (4, 32, 2048, 96) over 32), and phase 19's (yi-9b's per-rank
+     (4, 16, 2048, 128) over 2 at tp = 2);
      each line names the route its dtype and D take (wgmma, mma or ffma) and
      the instantiation that ran; inputs are the (B, H, S, D) views of (B, S, H, D)
      tensors, as the layer passes them.  bf16 and fp16 within
@@ -217,10 +218,11 @@ Phases, one line each (any failure raises and exits non-zero):
      tokens and 16 decode steps; ``mixtral_8x22b`` at full width with 2 of
      its 56 layers (the only cut: the whole model is 140.6 B parameters) on
      1 prompt of 6144 tokens, past its 4096-token window, and 8 steps;
-     ``zamba2_7b`` (81 Mamba2 layers, the shared block applied 14 times:
-     13 groups of 6 and a tail of 3) and ``xlstm_125m`` (12 blocks, sLSTM at
-     3 and 9) on 4 x 2048 tokens and 16 steps.  B6 must launch
-     ``api.attention_calls(cfg)`` times a prefill (16, 2, 14, 0) and not in
+     ``zamba2_7b`` at full width with 21 of its 81 Mamba2 layers (the
+     shared block applied 4 times: 3 groups of 6 and the tail of 3) and
+     ``xlstm_125m`` with 6 of its 12 blocks (sLSTM at 3), both cut to make
+     room for phase 19, on 4 x 2048 tokens and 16 steps.  B6 must
+     launch ``api.attention_calls(cfg)`` times a prefill (16, 2, 4, 0) and not in
      decode; every logit finite; the flash prefill against float32 as in
      phase 15, and xLSTM's bf16 prefill within ``bf16_bound``; two decode
      steps against fresh prefills, for MoE only on the batch rows where
@@ -244,8 +246,31 @@ Phases, one line each (any failure raises and exits non-zero):
      the same frames or patches; each line gives the times, peak memory,
      B6's route and launches and a profiled prefill and 8 decode steps.
 
-It then prints the kernels' JSON record, the ``nvidia-smi`` line and, last,
-``{"ok": true, "device": {...}}``.  It writes no file outside a temporary
+  19. the multi-card paths, each rank a child process of this script on
+     the one card (gloo on localhost, every rank on ``cuda:0``), each held
+     to the single card's result from the same seeded weights: a probe of
+     every collective the slice uses on CUDA tensors (raw, then through
+     ``models.sharding``'s host staging of DTensor's all-gather and of
+     send / recv), beside the parent's references; ``yi_9b`` whole over
+     (1 data x 2 model), 4 prompts of 2048 tokens (B6 48 times a prefill
+     on each rank, against float32 as in phase 15) and 16 decode steps
+     through ``_sharded_lse_decode`` fed the single card's greedy tokens
+     (each against a fresh single-card prefill); ``olmoe_1b_7b`` whole
+     with ``moe_impl="ep"`` (32 experts a rank) the same way, 8 steps, MoE
+     rows as in phase 17; ``qwen3_0_6b``'s ``make_train_step(grad_shardings
+     =)`` step over (2 x 2), four ranks, at full width with 7 of its 28
+     layers in float32, as the JAX test whose bounds it keeps (loss within
+     2e-3, parameters rtol 2e-2 / atol 2e-3);
+     ``pipeline_forward`` of qwen3's SwiGLU MLP over 2 stages (within
+     2e-5 of ``reference_forward``); a 2-layer qwen3 train state (tied
+     embeddings, bf16 moments: 1.1 GB) saved on
+     (2 x 2) and restored onto (1 x 2) by ``restore(shardings=)`` and
+     ``reshard_state``, every piece bit-equal to the file; the dry-run CLI
+     on ``whisper_tiny x decode_32k`` (``all cells ok``).  The kernels
+     line's B6 gains ``sharded_serve`` (both ranks' prefill launches).
+
+It then prints the per-phase walls, the kernels' JSON record, the
+``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``.  It writes no file outside a temporary
 directory it removes (and the kernel libraries under ``build/``).
 """
 
@@ -957,6 +982,8 @@ def check_flash_kernel() -> dict:
         # phase 15's prefills: llama3.2-3b's GQA groups of 3 and yi-9b's of 8
         ("llama3.2-3b gqa 24/8", 4, 24, 8, 2048, 2048, 128, bf16, True, None, False),
         ("yi-9b gqa 32/4", 4, 32, 4, 2048, 2048, 128, bf16, True, None, False),
+        # phase 19's sharded prefill: yi-9b's heads split over tp = 2, one rank's
+        ("yi-9b per rank tp=2 16/2", 4, 16, 2, 2048, 2048, 128, bf16, True, None, False),
         ("nemotron-4 d192 fp16", 1, 96, 8, 1024, 1024, 192, f16, True, None, False),
         # the FFMA route at D = 192 (no config runs float32 attention there)
         ("float32 d192", 1, 4, 4, 2048, 2048, 192, f32, True, None, False),
@@ -1131,6 +1158,7 @@ def serve_config(name: str, *, batch: int, prompt: int, steps: int, checked_step
     from repro_torch.models import api, hybrid, xlstm
     from repro_torch.models.layers import moe_capacity
 
+    t_config = time.perf_counter()
     cfg = get_config(name, attn_impl="flash", **overrides)
     expected = api.attention_calls(cfg)       # B6's launches a flash prefill
     gen = torch.Generator(device="cuda")
@@ -1284,7 +1312,8 @@ def serve_config(name: str, *, batch: int, prompt: int, steps: int, checked_step
         err_flash_vs_f32=err_flash, err_dense_vs_f32=err_dense if expected else "none",
         decode_vs_prefill_max=worst, decode_vs_prefill_tol=tol,
         checked_steps=json.dumps(list(kept)), **family,
-        bf16_split_k_flag_outside_steps=flag, gpu=json.dumps(nvidia_smi_line()))
+        bf16_split_k_flag_outside_steps=flag, wall_s=f"{time.perf_counter() - t_config:.1f}",
+        gpu=json.dumps(nvidia_smi_line()))
     for part, line in lines.items():
         log(f"{tag}_profile", part=part, **line)
     del params, first_logits, kept, logits, want, fresh
@@ -1317,15 +1346,21 @@ def dense_serve() -> int:
 
 def zoo_serve() -> int:
     """Phase 17: the MoE, hybrid and xLSTM families served at full width
-    (mixtral at 2 of its 56 layers, past its 4096-token window); returns
+    (mixtral at 2 of its 56 layers, past its 4096-token window; zamba2 at
+    21 of its 81 and xlstm at 6 of its 12, to make room for phase 19); returns
     B6's launches over the four main paths (counts set to 0 before each and
     summed)."""
     t0 = time.perf_counter()
     runs = [("olmoe_1b_7b", dict(batch=4, prompt=2048, steps=16, checked_steps=(0, 15))),
             ("mixtral_8x22b", dict(batch=1, prompt=6144, steps=8, checked_steps=(0, 7),
                                    n_layers=2)),
-            ("zamba2_7b", dict(batch=4, prompt=2048, steps=16, checked_steps=(0, 15))),
-            ("xlstm_125m", dict(batch=4, prompt=2048, steps=16, checked_steps=(0, 15)))]
+            # depth cut to make room for phase 19 (PERF.md): zamba2 21 of 81
+            # layers (3 groups of 6 and the tail of 3, as 81's 13 and 3), xlstm
+            # 6 of 12 blocks (sLSTM at 3 among mLSTM blocks, as at 3 and 9)
+            ("zamba2_7b", dict(batch=4, prompt=2048, steps=16, checked_steps=(0, 15),
+                               n_layers=21)),
+            ("xlstm_125m", dict(batch=4, prompt=2048, steps=16, checked_steps=(0, 15),
+                                n_layers=6))]
     launches = 0
     for seed, (name, kw) in enumerate(runs, start=17):
         launches += serve_config(name, seed=seed, tag="zoo_serve", profile=True, **kw)
@@ -2680,6 +2715,758 @@ def speed_path(bench) -> dict[str, int]:
     return {"success_tails_cuda_w": launched}
 
 
+# -- phase 19: the multi-card paths, as ranks on the one card ---------------------
+
+SHARDED_SERVE = {"name": "yi_9b", "batch": 4, "prompt": 2048, "steps": 16, "seed": 19}
+SHARDED_MOE = {"name": "olmoe_1b_7b", "batch": 4, "prompt": 2048, "steps": 8, "seed": 20}
+# depth cut to 7 of 28 layers (DTensor's eager dispatch, not the card, sets
+# the step's time), float32 as the JAX test whose bounds the step is held to:
+# in bf16 the first Adam step's sign on near-zero gradients follows the
+# summation order, and a flip moves a parameter by 2 lr (PERF.md)
+SHARDED_TRAIN = {"name": "qwen3_0_6b", "batch": 4, "seq": 512, "seed": 21,
+                 "overrides": {"n_layers": 7, "scan_groups": 7, "dtype": "float32"}}
+# 1.1 GB: 2 layers, tied embeddings, bf16 moments (as nemotron keeps them)
+SHARDED_RESHARD = {"name": "qwen3_0_6b", "seed": 22, "overrides": {
+    "n_layers": 2, "tie_embeddings": True, "opt_state_dtype": "bfloat16"}}
+SHARDED_PP = {"microbatches": 8, "rows": 2, "seq": 512, "seed": 23}
+PP_TOL = 2e-5
+WARM_TOKENS = 128
+
+
+def _free_coordinator() -> str:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return f"localhost:{sock.getsockname()[1]}"
+
+
+def start_ranks(task: str, world: int, work: Path) -> list:
+    """Start ``world`` processes of this script (``--sharded-child task rank
+    world coordinator workdir``), each a rank of a gloo group on
+    ``cuda:0``."""
+    import os
+
+    coord = _free_coordinator()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-child",
+                              task, str(rank), str(world), coord, str(work)],
+                             env=env, cwd=str(work), stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True) for rank in range(world)]
+
+
+def wait_ranks(procs: list, timeout: float) -> list[tuple[int, str]]:
+    """Each process's (exit code, output); every process is stopped."""
+    deadline = time.perf_counter() + timeout
+    logs = []
+    try:
+        for proc in procs:
+            try:
+                logs.append(proc.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0])
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                logs.append(proc.communicate()[0] + "\n[timed out]")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return [(proc.returncode, text) for proc, text in zip(procs, logs)]
+
+
+def run_ranks(task: str, world: int, work: Path, timeout: float) -> list[tuple[int, str]]:
+    return wait_ranks(start_ranks(task, world, work), timeout)
+
+
+def _check_ranks(task: str, results, work: Path | None = None) -> None:
+    for rank, (rc, text) in enumerate(results):
+        if rc != 0:
+            done = work / f"{task}_{rank}.partial.json" if work is not None else None
+            if done is not None and done.exists():
+                print(f"[sharded_partial] task={task} rank={rank} done={done.read_text()}",
+                      flush=True)
+            raise AssertionError(f"phase 19 {task}: rank {rank} exited {rc}:\n{text[-4000:]}")
+
+
+# the children's side (imports only repro_torch) ----------------------------------
+
+def _probe_case(name: str, fn, want, res: dict) -> None:
+    try:
+        got = fn()
+        torch.cuda.synchronize()
+        res[name] = "ok" if got == want else f"wrong {got} != {want}"
+    except Exception as e:           # a refusal is the probe's finding, printed
+        res[name] = f"error {type(e).__name__}: {str(e)[:120]}"
+
+
+def child_probe(rank: int, world: int, work: Path) -> dict:
+    """Each collective the slice uses, on CUDA tensors over gloo: raw, then
+    through the port's helpers (the staged all-gather under DTensor, the
+    staged send / recv)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import sharding
+
+    dev = torch.device("cuda", 0)
+    res: dict = {}
+    x = torch.full((4,), float(rank + 1), device=dev)
+    total = float(sum(range(1, world + 1)))
+
+    def reduced(op):
+        y = x.clone()
+        dist.all_reduce(y, op=op)
+        return y.tolist()
+
+    def gathered():
+        out = torch.empty(4 * world, device=dev)
+        dist.all_gather_into_tensor(out, x)
+        return out.tolist()
+
+    def scattered():
+        out = torch.empty(4 // world, device=dev)
+        dist.reduce_scatter_tensor(out, x)
+        return out.tolist()
+
+    def exchanged():
+        out = torch.empty(4, device=dev)
+        dist.all_to_all_single(out, torch.arange(4.0, device=dev) + 10 * rank)
+        return out.tolist()
+
+    chunk = 4 // world
+    _probe_case("all_reduce_sum", lambda: reduced(dist.ReduceOp.SUM), [total] * 4, res)
+    _probe_case("all_reduce_max", lambda: reduced(dist.ReduceOp.MAX), [float(world)] * 4, res)
+    _probe_case("all_gather", gathered,
+                [float(r + 1) for r in range(world) for _ in range(4)], res)
+    _probe_case("reduce_scatter", scattered, [total] * chunk, res)
+    _probe_case("all_to_all", exchanged,
+                [10.0 * r + rank * chunk + i for r in range(world) for i in range(chunk)], res)
+    mesh = lmesh.make_host_mesh((1, world), ("data", "model"))      # stages the all-gather
+    sharding.reset_staged_bytes()
+    a = torch.arange(8.0, device=dev).reshape(4, 2)
+    d = sharding.distribute(a, sharding.named_sharding(mesh, "tp", None))
+    ones = torch.ones(4, 2, device=dev)
+    part = DTensor.from_local(ones, mesh, [Replicate(), Partial()], run_check=False)
+    _probe_case("dtensor_all_gather_staged", lambda: d.full_tensor().tolist(), a.tolist(), res)
+    _probe_case("dtensor_partial_to_replicate",
+                lambda: part.redistribute(mesh, [Replicate(), Replicate()]).to_local().tolist(),
+                (ones * world).tolist(), res)
+    _probe_case("dtensor_partial_to_shard",
+                lambda: part.redistribute(mesh, [Replicate(), Shard(0)]).to_local().tolist(),
+                (ones * world)[:chunk].tolist(), res)
+    _probe_case("dtensor_shard_to_shard",
+                lambda: d.redistribute(mesh, [Replicate(), Shard(1)]).full_tensor().tolist(),
+                a.tolist(), res)
+    _probe_case("helper_all_reduce_max",
+                lambda: sharding.all_reduce(x.clone(), "max", mesh, "model").tolist(),
+                [float(world)] * 4, res)
+
+    def neighbour():
+        got = torch.zeros(4, device=dev)
+        nxt, prv = (rank + 1) % world, (rank - 1) % world
+        if rank % 2 == 0:
+            sharding.send_recv(x, nxt, None, None, mesh, "model")
+            sharding.send_recv(None, None, got, prv, mesh, "model")
+        else:
+            sharding.send_recv(None, None, got, prv, mesh, "model")
+            sharding.send_recv(x, nxt, None, None, mesh, "model")
+        return got.tolist()
+
+    _probe_case("send_recv_staged", neighbour, [float((rank - 1) % world + 1)] * 4, res)
+    res["staged_bytes"] = sharding.staged_bytes()
+    return res
+
+
+def child_probe_raw(rank: int, world: int, work: Path, kind: str) -> dict:
+    """The collectives the port stages, called raw on CUDA tensors: the
+    functional all-gather (DTensor's) and send / recv.  A crash is the
+    finding; the parent reads the exit code."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as fc
+
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    res: dict = {}
+    if kind == "all_gather":
+        _probe_case("functional_all_gather_raw",
+                    lambda: fc.all_gather_tensor(x, 0, dist.group.WORLD).tolist(),
+                    [float(r + 1) for r in range(world) for _ in range(4)], res)
+    else:
+        def sent():
+            y = x.clone()
+            if rank == 0:
+                dist.send(y, 1)
+            elif rank == 1:
+                dist.recv(y, 0)
+            return y.tolist()
+        _probe_case("send_recv_raw", sent, [1.0] * 4, res)
+    return res
+
+
+def _draw_in_turn(world: int, rank: int, make):
+    """``make()`` on each rank in turn (a barrier between), so that one full
+    copy of the seeded weights at a time lives on the card."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(world):
+        if r == rank:
+            out = make()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _sharded_serve(rank: int, world: int, mesh, work: Path, spec: dict) -> dict:
+    """One config's flash prefill and teacher-forced decode over ``mesh``,
+    held to the parent's single-card references (``serve_ref``)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api, sharding
+    from repro_torch.models.sharding import full, use_mesh
+
+    name, steps = spec["name"], spec["steps"]
+    cfg = get_config(name, attn_impl="flash")
+    ref = torch.load(work / f"{name}_ref.pt")
+
+    def place():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(spec["seed"])
+        whole = api.get_model(cfg).init_params(gen, cfg, device="cuda")
+        return api.distribute_tree(whole, api.param_shardings(cfg, mesh, whole))
+
+    params = _draw_in_turn(world, rank, place)
+    local_gb = sum(t.to_local().numel() * t.element_size()
+                   for t in params.tensors().values()) / 1e9
+    inputs = {"tokens": ref["tokens"].cuda()}
+    fed = ref["fed"].cuda()
+    prefill = api.make_prefill_step(cfg, max_len=spec["prompt"] + steps)
+    serve = api.make_serve_step(cfg)
+    with use_mesh(mesh):
+        # warm-up (cuBLAS handles, the allocator) on a short prompt
+        short = {"tokens": inputs["tokens"][:, :WARM_TOKENS]}
+        logits, cache = api.make_prefill_step(cfg, max_len=WARM_TOKENS + 2)(params, short)
+        serve(params, cache, {"next_token": fed[:, 0]})
+        del logits, cache
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        dist.barrier()
+        fa.reset_launch_counts()
+        sharding.reset_staged_bytes()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, inputs)
+        first = full(logits)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = fa.launch_counts()["flash_attention_cuda"]
+        staged_prefill = sharding.staged_bytes()
+        kept = []
+        t0 = time.perf_counter()
+        for t in range(steps):
+            logits, cache = serve(params, cache, {"next_token": fed[:, t]})
+            kept.append(full(logits))
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        decode_launches = fa.launch_counts()["flash_attention_cuda"] - launches
+        cache_local = {k: tuple(v.to_local().shape) for k, v in cache.items() if k in ("k", "v")}
+        cache_places = str(cache["k"].placements)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    real = slice(0, cfg.vocab_size)
+    want, err_dense = ref["want"].cuda(), ref["err_dense"]
+    err = float((first[:, real] - want[:, real]).abs().max())
+    tol = 2 * err_dense + 0.02
+    worst, held = 0.0, {}
+    for t, got in enumerate(kept):
+        rows = ref["held"][t]
+        if not rows:
+            raise AssertionError(f"{name}: decode step {t}: no row left to hold")
+        fresh = ref["fresh"][t].cuda()
+        diff = float((got[rows][:, real] - fresh[rows][:, real]).abs().max())
+        worst, held[t] = max(worst, diff), rows
+        if not diff <= tol:
+            raise AssertionError(f"{name} rank {rank}: decode step {t}: max|decode - prefill| "
+                                 f"{diff} > {tol} over rows {rows}")
+    if not err <= 1.5 * err_dense + 5e-3:
+        raise AssertionError(f"{name} rank {rank}: sharded flash prefill max|err| {err} vs "
+                             f"float32, dense bf16 {err_dense}: above 1.5 x dense + 5e-3")
+    finite = all(bool(torch.isfinite(t).all()) for t in (first, *kept))
+    if not finite:
+        raise AssertionError(f"{name}: non-finite logits")
+    return {"config": cfg.name, "prefill_ms": prefill_s * 1e3,
+            "decode_ms_per_step": decode_s / steps * 1e3, "b6_launches_prefill": launches,
+            "b6_launches_decode": decode_launches, "peak_memory_gib": peak,
+            "local_param_gb": local_gb, "staged_bytes_prefill": staged_prefill,
+            "staged_bytes": sharding.staged_bytes(), "err_vs_f32": err,
+            "err_dense_single": err_dense, "err_flash_single": ref["err_flash"],
+            "decode_vs_prefill_max": worst, "decode_tol": tol, "rows_held": held,
+            "cache_local_shape": cache_local, "cache_placements": cache_places,
+            "b6_route": fa.flash_route(torch.bfloat16, cfg.head_dim_)}
+
+
+def _sharded_pp(rank: int, pod) -> dict:
+    """Phase 19 [sharded_pp]: ``pipeline_forward`` over 2 stages of
+    qwen3-0.6b's SwiGLU MLP at full width in float32 against
+    ``reference_forward``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    from repro_torch.models import sharding
+    from repro_torch.runtime.pipeline_parallel import pipeline_forward, reference_forward
+
+    cfg = dataclasses.replace(get_config("qwen3_0_6b"), dtype="float32")
+    d, f = cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SHARDED_PP["seed"])
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    params = {"w_gate": rnd(2, d, f) * 0.02, "w_up": rnd(2, d, f) * 0.02,
+              "w_down": rnd(2, f, d) * 0.02}
+    x = rnd(SHARDED_PP["microbatches"], SHARDED_PP["rows"], SHARDED_PP["seq"], d)
+    stage = lambda p, h: layers.mlp(h, p, cfg)
+    sharding.reset_staged_bytes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pipeline_forward(stage, params, x, pod, axis="pod")
+    torch.cuda.synchronize()
+    pp_s = time.perf_counter() - t0
+    want = reference_forward(stage, params, x)
+    err = float((got - want).abs().max())
+    if not err <= PP_TOL:
+        raise AssertionError(f"pipeline_forward: max|got - reference| {err} > {PP_TOL}")
+    return {"stages": 2, "microbatches": x.shape[0], "microbatch": list(x.shape[1:]),
+            "max_abs_err": err, "tol": PP_TOL, "ms": pp_s * 1e3,
+            "staged_bytes": sharding.staged_bytes(), "ticks": x.shape[0] + 1}
+
+
+def child_group_a(rank: int, world: int, work: Path) -> dict:
+    """Ranks of a (1 data x 2 model) mesh: yi-9b served, olmoe-1b-7b served
+    with expert parallelism, then the 2-stage pipeline."""
+    from repro_torch.launch import mesh as lmesh
+
+    mesh = lmesh.make_host_mesh((1, world), ("data", "model"))
+    out = {"serve": _sharded_serve(rank, world, mesh, work, SHARDED_SERVE)}
+    _partial(work, "group_a", rank, out)
+    torch.cuda.empty_cache()
+    out["moe"] = _sharded_serve(rank, world, mesh, work, SHARDED_MOE)
+    _partial(work, "group_a", rank, out)
+    torch.cuda.empty_cache()
+    out["pp"] = _sharded_pp(rank, lmesh.make_host_mesh((world,), ("pod",)))
+    return out
+
+
+def _partial(work: Path, task: str, rank: int, out: dict) -> None:
+    """The parts a rank has finished, for the parent to print if a later
+    part fails."""
+    (work / f"{task}_{rank}.partial.json").write_text(json.dumps(out))
+
+
+def _sharded_train(rank: int, world: int, mesh, work: Path) -> dict:
+    """Phase 19 [sharded_train]: one ``make_train_step(grad_shardings=)``
+    step of qwen3-0.6b at full width over (2 x 2), held to the parent's
+    single-card step (``train_ref.pt``)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models.sharding import full, use_mesh
+
+    cfg = get_config(SHARDED_TRAIN["name"], **SHARDED_TRAIN["overrides"])
+    ref = torch.load(work / "train_ref.pt")
+    holder = {}
+
+    def place():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SHARDED_TRAIN["seed"])
+        whole = api.init_state(cfg, gen, device="cuda")
+        holder["sh"] = api.state_shardings(cfg, mesh, whole)
+        return api.distribute_tree(whole, holder["sh"])
+
+    state = _draw_in_turn(world, rank, place)
+    sh = holder["sh"] if "sh" in holder else api.state_shardings(cfg, mesh, state)
+    tokens = ref["tokens"].cuda()
+    batch = api.distribute_tree({"tokens": tokens},
+                                api.batch_shardings(cfg, mesh, {"tokens": tokens}))
+    step = api.make_train_step(cfg, peak_lr=1e-3, warmup=1, grad_shardings=sh.params)
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with use_mesh(mesh):
+        state, metrics = step(state, batch)
+        loss = float(full(metrics["loss"]))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    worst_abs, worst_name, over = 0.0, "", []
+    want_params = ref["params"]
+    for name, t in state.params.tensors().items():
+        got = full(t).detach().float()
+        if tuple(t.placements) != sh.params[name].placements:
+            raise AssertionError(f"{name}: placements {t.placements} after the step")
+        want = want_params[name].cuda().float()
+        diff = (got - want).abs()
+        excess = diff - (2e-3 + 2e-2 * want.abs())
+        if bool((excess > 0).any()):
+            over.append(f"{name}: {int((excess > 0).sum())} of {diff.numel()}, "
+                        f"worst {float(diff.max())}")
+        if float(diff.max()) > worst_abs:
+            worst_abs, worst_name = float(diff.max()), name
+    if not abs(loss - ref["loss"]) <= 2e-3 or over:
+        raise AssertionError(f"sharded train: loss {loss} vs {ref['loss']}; parameters past "
+                             f"rtol 2e-2 / atol 2e-3: {over[:5]}")
+    return {"config": cfg.name, "layers": f"{cfg.n_layers} of 28", "dtype": cfg.dtype,
+            "loss": loss,
+            "loss_single": ref["loss"],
+            "loss_abs_err": abs(loss - ref["loss"]), "param_max_abs_err": worst_abs,
+            "param_worst": worst_name, "step_ms": step_s * 1e3, "peak_memory_gib": peak,
+            "microbatch": cfg.microbatch, "remat": cfg.remat}
+
+
+def _pieces_equal_file(trees, mesh, path: Path) -> tuple[bool, int, int]:
+    """Whether every rank-local piece of each tree's leaves equals the same
+    slice of the checkpoint file at ``path`` (leaves in the file's order);
+    returns (equal, leaves, bytes of the file's arrays)."""
+    from repro_torch.checkpoint.ckpt import _named_leaves, _to_tensor
+    from repro_torch.models.sharding import local_region
+
+    meta = json.loads((path / "meta.json").read_text())
+    equal, checked, nbytes = True, 0, 0
+    with np.load(path / "arrays.npz") as data:
+        for i, leaves in enumerate(zip(*(_named_leaves(t) for t in trees))):
+            first = leaves[0][1]
+            whole = _to_tensor(data[f"a{i}"], meta["dtypes"][i], first.to_local(), "cuda")
+            off, size = local_region(first.shape, mesh, first.placements)
+            want = whole[tuple(slice(o, o + n) for o, n in zip(off, size))]
+            for _, t in leaves:
+                equal &= bool(torch.equal(t.to_local(), want))
+            checked += 1
+            nbytes += whole.numel() * whole.element_size()
+    return equal, checked, nbytes
+
+
+def _sharded_reshard(rank: int, world: int, mesh22, mesh12, work: Path) -> dict:
+    """Phase 19 [sharded_reshard]: a train state saved from (2 x 2), restored
+    onto (1 x 2) by ``restore(shardings=)`` and moved by ``reshard_state``.
+    Every rank's pieces of the saved state, and on the two ranks of the new
+    mesh every piece of both results, bit-equal to the same slices of the
+    file (no gather in the check)."""
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.runtime.elastic import reshard_state
+
+    cfg = get_config(SHARDED_RESHARD["name"], **SHARDED_RESHARD["overrides"])
+
+    def place():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SHARDED_RESHARD["seed"])
+        whole = api.init_state(cfg, gen, device="cuda")
+        for t in list(whole.m.values()) + list(whole.v.values()):
+            t.uniform_(generator=gen)
+        return api.distribute_tree(whole, api.state_shardings(cfg, mesh22, whole))
+
+    state22 = _draw_in_turn(world, rank, place)
+    like = api.abstract_state(cfg)
+    sh12 = api.state_shardings(cfg, mesh12, like)
+    step_dir = work / "ckpt" / "step_3"
+    t0 = time.perf_counter()
+    save(str(work / "ckpt"), 3, state22)
+    save_s = time.perf_counter() - t0
+    saved_equal, checked, nbytes = _pieces_equal_file([state22], mesh22, step_dir)
+    member = mesh12.get_coordinate() is not None
+    t0 = time.perf_counter()
+    restored = restore(str(work / "ckpt"), 3, like, shardings=sh12)[0] if member else None
+    restore_s = time.perf_counter() - t0
+    moved = reshard_state(state22, sh12)
+    equal = saved_equal
+    if member:
+        equal &= _pieces_equal_file([restored, moved], mesh12, step_dir)[0]
+    if not equal:
+        raise AssertionError(f"reshard rank {rank}: a piece differs from the saved file")
+    return {"member": member, "leaves": checked, "bytes": nbytes, "bit_equal": equal,
+            "save_s": save_s, "restore_s": restore_s, "config": cfg.name,
+            "layers": cfg.n_layers}
+
+
+def child_group_b(rank: int, world: int, work: Path) -> dict:
+    """Ranks of a (2 data x 2 model) mesh: the train step, then the reshard
+    onto (1 x 2)."""
+    from repro_torch.launch import mesh as lmesh
+
+    mesh22 = lmesh.make_host_mesh((2, 2), ("data", "model"))
+    mesh12 = lmesh.make_host_mesh((1, 2), ("data", "model"))
+    out = {"train": _sharded_train(rank, world, mesh22, work)}
+    _partial(work, "group_b", rank, out)
+    torch.cuda.empty_cache()
+    out["reshard"] = _sharded_reshard(rank, world, mesh22, mesh12, work)
+    return out
+
+
+def sharded_child(task: str, rank: int, world: int, coord: str, work: str) -> int:
+    """Entry of a phase-19 child process: one rank of a gloo group on
+    ``cuda:0``; writes ``<task>_<rank>.json`` in ``work``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as lmesh
+
+    torch.cuda.set_device(0)
+    lmesh.init_distributed(coordinator=coord, num_processes=world, process_id=rank)
+    work_dir = Path(work)
+    if task.startswith("probe_raw_"):
+        out = child_probe_raw(rank, world, work_dir, task[len("probe_raw_"):])
+    else:
+        out = {"probe": child_probe, "group_a": child_group_a,
+               "group_b": child_group_b}[task](rank, world, work_dir)
+    (work_dir / f"{task}_{rank}.json").write_text(json.dumps(out))
+    if not task.startswith("probe_raw_"):
+        dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+# the parent's side -------------------------------------------------------------------
+
+def serve_ref(spec: dict, work: Path) -> None:
+    """The single-card references of a sharded serve, from the same seeded
+    weights: the greedy tokens of a single-card flash decode (fed to the
+    ranks in turn), a float32 evaluation of the prefill and the dense bf16
+    prefill's error from it, and for each decode step a fresh single-card
+    flash prefill over the prompt and the tokens fed so far (MoE: the rows
+    where neither prefill drops a route)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.models import api
+
+    name, steps, b = spec["name"], spec["steps"], spec["batch"]
+    cfg = get_config(name, attn_impl="flash")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(spec["seed"])
+    params = api.get_model(cfg).init_params(gen, cfg, device="cuda")
+    inputs = api.make_batch(cfg, ShapeCell("serve", spec["prompt"], b, "prefill"), gen,
+                            device="cuda")
+    tokens = inputs["tokens"]
+    prefill = api.make_prefill_step(cfg, max_len=spec["prompt"] + steps)
+    serve = api.make_serve_step(cfg)
+    moe = bool(cfg.n_experts)
+    with MoeDrops(b) as counter:
+        logits, cache = prefill(params, inputs)
+    drops_main = counter.rows.tolist()
+    first = logits
+    fed = []
+    for _ in range(steps):
+        tok = logits.argmax(-1)
+        fed.append(tok)
+        logits, cache = serve(params, cache, {"next_token": tok})
+    del cache
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    want = api.make_prefill_step(cfg32, max_len=spec["prompt"], attn_impl="ref")(
+        Float32Layers(params), inputs)[0]
+    torch.cuda.empty_cache()
+    real = slice(0, cfg.vocab_size)
+    dense = api.make_prefill_step(cfg, max_len=spec["prompt"], attn_impl="ref")(params, inputs)[0]
+    err_dense = float((dense[:, real] - want[:, real]).abs().max())
+    err_flash = float((first[:, real] - want[:, real]).abs().max())
+    del dense
+    generated = torch.stack(fed, dim=1)
+    fresh, held = [], []
+    for t in range(steps):
+        prefix = torch.cat([tokens, generated[:, :t + 1].to(tokens.dtype)], dim=1)
+        with MoeDrops(b) as counter:
+            fresh.append(api.make_prefill_step(cfg)(params, {"tokens": prefix})[0].float().cpu())
+        rows = list(range(b))
+        if moe:
+            rows = [r for r in rows if not (drops_main[r] or counter.rows[r])]
+        held.append(rows)
+    torch.save({"tokens": tokens.cpu(), "fed": generated.cpu(), "want": want.cpu(),
+                "err_dense": err_dense, "err_flash": err_flash, "fresh": fresh, "held": held,
+                "drops_main": drops_main}, work / f"{name}_ref.pt")
+    del params, first, logits, want, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_ref(work: Path) -> None:
+    """The single-card step the sharded one is held to: the same seeded
+    state and batch, ``make_train_step(peak_lr=1e-3, warmup=1)`` (the JAX
+    test's); its loss and updated parameters."""
+    import gc
+
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.models import api
+
+    cfg = get_config(SHARDED_TRAIN["name"], **SHARDED_TRAIN["overrides"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SHARDED_TRAIN["seed"])
+    state = api.init_state(cfg, gen, device="cuda")
+    batch = api.make_batch(cfg, ShapeCell("train", SHARDED_TRAIN["seq"],
+                                          SHARDED_TRAIN["batch"], "train"), gen, device="cuda")
+    state, metrics = api.make_train_step(cfg, peak_lr=1e-3, warmup=1)(state, batch)
+    torch.save({"tokens": batch["tokens"].cpu(), "loss": float(metrics["loss"]),
+                "params": {n: t.detach().cpu() for n, t in state.params.tensors().items()}},
+               work / "train_ref.pt")
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _rank_results(task: str, world: int, work: Path) -> list[dict]:
+    return [json.loads((work / f"{task}_{rank}.json").read_text()) for rank in range(world)]
+
+
+def start_probe(work: Path) -> dict:
+    """Phase 19's probe, started: each collective of the slice on CUDA
+    tensors over gloo, two ranks on the card; the raw functional all-gather
+    and send / recv each in a pair of their own (they may kill the
+    process).  The three pairs run beside the parent's references."""
+    return {task: start_ranks(task, 2, work)
+            for task in ("probe", "probe_raw_all_gather", "probe_raw_send")}
+
+
+def finish_probe(started: dict, work: Path) -> dict:
+    results = {task: wait_ranks(procs, 240) for task, procs in started.items()}
+    _check_ranks("probe", results["probe"])
+    probe = _rank_results("probe", 2, work)
+    line = {}
+    for kind in ("all_gather", "send"):
+        files = [work / f"probe_raw_{kind}_{r}.json" for r in range(2)]
+        key = "functional_all_gather_raw" if kind == "all_gather" else "send_recv_raw"
+        if all(f.exists() for f in files):
+            line[key] = json.loads(files[0].read_text())[key]
+        else:
+            line[key] = ("refused (exit codes "
+                         f"{[rc for rc, _ in results[f'probe_raw_{kind}']]})")
+    for rank, res in enumerate(probe):
+        bad = {k: v for k, v in res.items() if k != "staged_bytes" and v != "ok"}
+        if bad:
+            raise AssertionError(f"phase 19 probe rank {rank}: {bad}")
+    from repro_torch.models.sharding import GLOO_HOST_STAGED
+
+    log("sharded_probe", backend="gloo", device="cuda:0 (both ranks)",
+        **{k: json.dumps(v) for k, v in probe[0].items() if k != "staged_bytes"},
+        **{k: json.dumps(v) for k, v in line.items()},
+        staged=json.dumps(sorted(GLOO_HOST_STAGED)),
+        staged_bytes_probe=probe[0]["staged_bytes"], torch=torch.__version__)
+    return line
+
+
+def sharded_path(tmp: Path) -> dict[str, int]:
+    """Phase 19: the multi-card paths on the one card, each rank a process
+    (gloo on localhost, every rank on cuda:0): the probe, yi-9b and
+    olmoe-1b-7b served over (1 x 2), qwen3-0.6b's train step over (2 x 2),
+    the pipeline, the reshard and the dry run.  Returns B6's launches in the
+    sharded serve's prefill, summed over its ranks."""
+    import os
+
+    t_phase = time.perf_counter()
+    work = tmp / "sharded"
+    work.mkdir()
+    dry = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                            "whisper_tiny", "--shape", "decode_32k", "--out", str(work / "dry")],
+                           env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=str(work),
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    probes = start_probe(work)
+    for spec in (SHARDED_SERVE, SHARDED_MOE):
+        serve_ref(spec, work)
+    train_ref(work)
+    finish_probe(probes, work)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run_ranks("group_a", 2, work, timeout=600)
+    group_a_s = time.perf_counter() - t0
+    _check_ranks("group_a", results, work)
+    a = _rank_results("group_a", 2, work)
+    from repro_torch.configs import get_config
+
+    for key, tag, spec in (("serve", "sharded_serve", SHARDED_SERVE),
+                           ("moe", "sharded_moe", SHARDED_MOE)):
+        r0, r1 = a[0][key], a[1][key]
+        cfg = get_config(spec["name"])
+        expected = cfg.n_layers
+        if r0["b6_launches_prefill"] != expected or r1["b6_launches_prefill"] != expected:
+            raise AssertionError(f"{tag}: B6 launched {r0['b6_launches_prefill']} / "
+                                 f"{r1['b6_launches_prefill']} times a prefill, not {expected}")
+        extra = {}
+        if key == "moe":
+            ref = torch.load(work / f"{spec['name']}_ref.pt")
+            extra = dict(experts=f"{cfg.n_experts}top{cfg.top_k}",
+                         experts_per_rank=cfg.n_experts // 2, moe_impl=cfg.moe_impl,
+                         moe_dropped_main_by_row=json.dumps(ref["drops_main"]),
+                         decode_rows_held=json.dumps(r0["rows_held"]))
+        log(tag, config=r0["config"], mesh="1x2", ranks=2, device="cuda:0", backend="gloo",
+            batch=spec["batch"], prompt=spec["prompt"], decode_steps=spec["steps"],
+            decode_tokens="single-card greedy, fed in turn",
+            prefill_ms=f"{max(r0['prefill_ms'], r1['prefill_ms']):.3f}",
+            decode_ms_per_step=f"{max(r0['decode_ms_per_step'], r1['decode_ms_per_step']):.3f}",
+            peak_memory_gib_per_rank=json.dumps([round(r0["peak_memory_gib"], 2),
+                                                 round(r1["peak_memory_gib"], 2)]),
+            local_param_gb_per_rank=json.dumps([round(r0["local_param_gb"], 3),
+                                                round(r1["local_param_gb"], 3)]),
+            gloo_staged_bytes=r0["staged_bytes"],
+            gloo_staged_bytes_prefill=r0["staged_bytes_prefill"],
+            b6_route=r0["b6_route"], b6_launches_prefill_per_rank=r0["b6_launches_prefill"],
+            b6_launches_decode=r0["b6_launches_decode"],
+            err_vs_f32=r0["err_vs_f32"], err_flash_single_vs_f32=r0["err_flash_single"],
+            err_dense_single_vs_f32=r0["err_dense_single"],
+            decode_vs_prefill_max=max(r0["decode_vs_prefill_max"], r1["decode_vs_prefill_max"]),
+            decode_tol=r0["decode_tol"], cache_local_shape=json.dumps(r0["cache_local_shape"]),
+            cache_placements=json.dumps(r0["cache_placements"]), **extra,
+            gpu=json.dumps(nvidia_smi_line()))
+    pp = a[0]["pp"]
+    log("sharded_pp", **{k: json.dumps(v) if isinstance(v, list) else v for k, v in pp.items()})
+
+    t0 = time.perf_counter()
+    results = run_ranks("group_b", 4, work, timeout=600)
+    group_b_s = time.perf_counter() - t0
+    _check_ranks("group_b", results, work)
+    b = _rank_results("group_b", 4, work)
+    tr = b[0]["train"]
+    log("sharded_train", mesh="2x2", ranks=4, device="cuda:0", backend="gloo",
+        cut=json.dumps({"n_layers": f"{SHARDED_TRAIN['overrides']['n_layers']} of 28"}),
+        batch=SHARDED_TRAIN["batch"], seq=SHARDED_TRAIN["seq"], attn_impl="ref",
+        grad_shardings="state_shardings(...).params", loss_tol=2e-3,
+        param_tol="rtol 2e-2 atol 2e-3",
+        **{k: v for k, v in tr.items()},
+        step_ms_per_rank=json.dumps([round(r["train"]["step_ms"], 1) for r in b]),
+        gpu=json.dumps(nvidia_smi_line()))
+    rs = [r["reshard"] for r in b]
+    if not all(r["bit_equal"] for r in rs[:2]) or rs[0]["leaves"] == 0:
+        raise AssertionError(f"reshard: {rs}")
+    log("sharded_reshard", saved_on="2x2", restored_on="1x2", config=rs[0]["config"],
+        layers=rs[0]["layers"], leaves=rs[0]["leaves"], bytes=rs[0]["bytes"],
+        bit_equal=True, save_s=f"{rs[0]['save_s']:.2f}", restore_s=f"{rs[0]['restore_s']:.2f}",
+        cut=json.dumps(SHARDED_RESHARD["overrides"]),
+        ranks_outside_new_mesh=sum(1 for r in rs if not r["member"]))
+
+    try:
+        out, err = dry.communicate(timeout=300)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    if dry.returncode != 0 or "all cells ok" not in out:
+        raise AssertionError(f"dry run failed ({dry.returncode}):\n{out[-2000:]}\n{err[-2000:]}")
+    rec = json.loads((work / "dry" / "whisper_tiny__decode_32k__pod.json").read_text())
+    log("sharded_dryrun", cell="whisper_tiny x decode_32k", mesh=rec["mesh"],
+        devices=rec["devices"], all_cells_ok=True,
+        wall_s=f"{rec['lower_s'] + rec['compile_s']:.1f} (place + counted run; "
+               "the process ran beside the phase)",
+        per_device_bytes=rec["memory"]["per_device_total"],
+        flops=rec["cost"]["flops"], collective_bytes=rec["collectives"]["total_bytes"],
+        dominant=rec["roofline"]["dominant"])
+    launches = a[0]["serve"]["b6_launches_prefill"] + a[1]["serve"]["b6_launches_prefill"]
+    log("sharded_path", b6_launches=launches, group_a_s=f"{group_a_s:.1f}",
+        group_b_s=f"{group_b_s:.1f}", wall_s=f"{time.perf_counter() - t_phase:.1f}",
+        note="ranks share one card over gloo: not a multi-card scaling measure")
+    return launches
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2694,6 +3481,12 @@ def main() -> int:
 
     smi = nvidia_smi_line()
     print(smi, flush=True)
+    t_start = time.perf_counter()
+    walls: dict[str, float] = {}
+
+    def phase_done(name: str) -> None:
+        walls[name] = round(time.perf_counter() - t_start - sum(walls.values()), 1)
+
     t0 = time.perf_counter()
     builds = build.build_all()
     log("env", gpu=json.dumps(smi), torch=torch.__version__,
@@ -2713,6 +3506,7 @@ def main() -> int:
                          for d in fa_kernel.WGMMA_HEAD_DIMS})
 
     record = check_kernels(kernel_mod, success_tails_ref)
+    phase_done('1-2 build, B1/B2')
 
     # -- phase 3: the main path ------------------------------------------------
     bench = json.loads((ROOT / "BENCH_fig3.json").read_text())
@@ -2741,6 +3535,7 @@ def main() -> int:
         dp_rows_per_s=f"{2 * rows * rounds / wall:.0f}",
         max_memory_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
         launches=json.dumps(launches_main))
+    phase_done('3 fig3')
 
     # -- phase 4: the static-threshold entry ------------------------------------
     kernel_mod.reset_launch_counts()
@@ -2756,6 +3551,7 @@ def main() -> int:
         raise AssertionError(f"compare: LEA does not beat static: {cmp}")
     log("compare", **{f"R_{s}": f"{v:.4f}" for s, v in cmp.items()},
         wall_s=f"{wall_cmp:.3f}", launches=json.dumps(launches_static))
+    phase_done('4 compare')
 
     # -- phase 5: card and CPU agree on the same draws --------------------------
     group, = sweeps.build_groups(sweeps.expand("fig3", rounds=2000), seeds=4)
@@ -2770,12 +3566,15 @@ def main() -> int:
         raise AssertionError(f"card and CPU differ in {differ} rounds")
     log("agree", rows=on_card.shape[0], rounds=on_card.shape[1],
         differing_rounds=differ)
+    phase_done('5 agree')
 
     # -- phase 6: the coding kernels against their plain versions -------------
     record.update(check_coding_kernels())
+    phase_done('6 coding kernels')
 
     # -- phase 7: the coded path -------------------------------------------------
     launches_coded = coded_path()
+    phase_done('7 coded')
 
     # -- phase 8: the ported examples --------------------------------------------
     from repro_torch.examples import coded_regression, quickstart
@@ -2790,38 +3589,54 @@ def main() -> int:
     torch.cuda.synchronize()
     log("example_quickstart", wall_s=f"{time.perf_counter() - t0:.3f}",
         rows=json.dumps(qs["lines"]))
+    phase_done('8 examples')
 
     # -- phase 9: flash attention against its plain version ----------------------
     record.update(check_flash_kernel())
+    phase_done('9 flash')
 
     # -- phase 10: the LM serving path -------------------------------------------
     launches_lm = serve_lm()
+    phase_done('10 serve')
 
     # -- phase 11: the fault-injection runtime ------------------------------------
     launches_faults = faults_path()
+    phase_done('11 faults')
 
     # -- phase 12: the streaming serving layer -------------------------------------
     launches_serving = serving_path()
+    phase_done('12 serving')
 
     # -- phase 13: observability ------------------------------------------------------
     launches_obs = obs_path()
+    phase_done('13 obs')
 
     # -- phase 14: the speed layer -------------------------------------------------
     launches_speed = speed_path(bench)
+    phase_done('14 speed')
 
     # -- phase 15: the rest of the dense family, served -----------------------------
     launches_dense = dense_serve()
+    phase_done('15 dense')
 
     # -- phase 16: training ----------------------------------------------------------
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         launches_train = train_path(Path(tmp))
+    phase_done('16 train')
 
     # -- phase 17: the MoE, hybrid and xLSTM families, served -------------------------
     launches_zoo = zoo_serve()
+    phase_done('17 zoo')
 
     # -- phase 18: the enc-dec and vision-stub families, served -----------------------
     launches_frontend = frontend_serve()
+    phase_done('18 frontend')
+
+    # -- phase 19: the multi-card paths, ranks sharing the one card ---------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_sharded = sharded_path(Path(tmp))
+    phase_done('19 sharded')
 
     kernels = []
     launches = {"success_tails_cuda_w": launches_main["success_tails_cuda_w"],
@@ -2833,7 +3648,8 @@ def main() -> int:
                "faults": launches_faults, "serving": launches_serving, "obs": launches_obs,
                "speed": launches_speed, "dense_serve": {"flash_attention_cuda": launches_dense},
                "train": launches_train, "zoo_serve": {"flash_attention_cuda": launches_zoo},
-               **{path: {"flash_attention_cuda": n} for path, n in launches_frontend.items()}}
+               **{path: {"flash_attention_cuda": n} for path, n in launches_frontend.items()},
+               "sharded_serve": {"flash_attention_cuda": launches_sharded}}
     for name, (source, replaces) in KERNELS.items():
         entry = record[name]
         kernels.append({
@@ -2854,6 +3670,8 @@ def main() -> int:
             "kernel_route": entry.get("kernel_route"),
             "shape": entry["shape"],
         })
+    log("phase_walls", total_s=round(time.perf_counter() - t_start, 1), **{
+        f"p{k.split()[0]}": v for k, v in walls.items()})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2863,4 +3681,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--sharded-child":
+        sys.path.insert(0, str(ROOT / "src"))
+        sys.exit(sharded_child(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
+                               sys.argv[6]))
     sys.exit(main())

@@ -17,6 +17,12 @@ dicts, as the trainer's flat gradient and moment dicts do), a NamedTuple
 parameters);
 leaves are taken in JAX's order.
 
+A sharded tree (DTensor leaves, ``models.sharding``) is saved whole: every
+rank gathers each leaf (``full_tensor()``, a collective all ranks join) and
+rank 0 alone writes, then every rank waits for the write.  ``restore(...,
+shardings=)`` places each leaf on the given sharding: the elastic path, a
+checkpoint written on one mesh restored onto another.
+
 Fault-tolerance contract:
   * the writer never leaves a half-written visible checkpoint (tmp + rename);
   * ``latest_step`` ignores tmp/corrupt dirs, so a crash mid-write simply
@@ -35,6 +41,7 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch.models.sharding import is_dtensor
 from repro_torch.optim.adamw import jax_order
 
 
@@ -80,8 +87,12 @@ def _rebuild(like, leaves):
 
 def _host(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
     """A host copy of one leaf, never a view of it (the optimizer updates
-    the state's tensors in place), and its dtype name."""
-    t = leaf.detach().to("cpu", copy=True)
+    the state's tensors in place), and its dtype name; a DTensor is
+    gathered whole first."""
+    t = leaf.detach()
+    if is_dtensor(t):
+        t = t.full_tensor()
+    t = t.to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     a = t.numpy()
@@ -108,9 +119,24 @@ def _write(directory: str, step: int, names, arrays, dtypes, extra_meta) -> str:
     return final
 
 
+def _sharded(named) -> bool:
+    return any(is_dtensor(leaf) for _, leaf in named)
+
+
 def save(directory: str, step: int, tree, *, extra_meta: dict | None = None) -> str:
-    """Blocking atomic save.  Returns the final path."""
-    return _write(directory, step, *_host_tree(tree), extra_meta)
+    """Blocking atomic save.  Returns the final path.  A sharded tree is
+    gathered on every rank and written by rank 0; every rank returns once
+    the write is done."""
+    hosted = _host_tree(tree)
+    if not _sharded(_named_leaves(tree)):
+        return _write(directory, step, *hosted, extra_meta)
+    import torch.distributed as dist
+
+    final = os.path.join(directory, f"step_{step}")
+    if dist.get_rank() == 0:
+        _write(directory, step, *hosted, extra_meta)
+    dist.barrier()
+    return final
 
 
 def latest_step(directory: str) -> int | None:
@@ -129,18 +155,25 @@ def latest_step(directory: str) -> int | None:
     return best
 
 
-def _to_tensor(arr: np.ndarray, saved_dtype: str, like: torch.Tensor) -> torch.Tensor:
+def _to_tensor(arr: np.ndarray, saved_dtype: str, like: torch.Tensor,
+               device=None) -> torch.Tensor:
     if saved_dtype == "bfloat16" and arr.dtype == np.uint16:
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
-    return t.to(device=like.device, dtype=like.dtype)
+    return t.to(device=device or like.device, dtype=like.dtype)
 
 
-def restore(directory: str, step: int, like_tree):
+def restore(directory: str, step: int, like_tree, *, shardings=None):
     """Restore into the structure, dtypes and devices of ``like_tree``;
     returns ``(tree, meta)``.  A checkpoint whose leaf names differ from the
-    tree's raises ``ValueError``."""
+    tree's raises ``ValueError``.
+
+    ``shardings`` (a tree of ``models.sharding.NamedSharding`` of the same
+    structure, e.g. ``api.state_shardings`` of a mesh) places each leaf on
+    its sharding -- every rank keeps its own piece, on the mesh's device:
+    the elastic path, a checkpoint written on one mesh resharded onto
+    another (``runtime/elastic.py``)."""
     path = os.path.join(directory, f"step_{step}")
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
@@ -152,9 +185,31 @@ def restore(directory: str, step: int, like_tree):
             f"{set(names) ^ set(meta['names'])}"
         )
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        leaves = [_to_tensor(data[f"a{i}"], meta["dtypes"][i], like)
+        host = None if shardings is None else "cpu"    # each rank keeps its piece
+        leaves = [_to_tensor(data[f"a{i}"], meta["dtypes"][i], like, host)
                   for i, (_, like) in enumerate(named)]
-    return _rebuild(like_tree, iter(leaves)), meta
+    tree = _rebuild(like_tree, iter(leaves))
+    if shardings is None:
+        return tree, meta
+    from repro_torch.models.api import distribute_tree
+
+    return distribute_tree(tree, shardings, device=_mesh_device(shardings)), meta
+
+
+def _mesh_device(shardings) -> torch.device:
+    """The device of the shardings' mesh (``cuda`` for a CUDA mesh: the
+    current device)."""
+    from repro_torch.models.sharding import NamedSharding
+
+    def first(tree):
+        if isinstance(tree, NamedSharding):
+            return tree
+        values = (tree._asdict().values() if hasattr(tree, "_asdict")
+                  else tree.values() if isinstance(tree, dict) else tree)
+        return next(s for s in map(first, values) if s is not None)
+
+    dev = first(shardings).mesh.device_type
+    return torch.device(dev, torch.cuda.current_device()) if dev == "cuda" else torch.device(dev)
 
 
 class CheckpointManager:
@@ -201,14 +256,14 @@ class CheckpointManager:
         for s in steps[: -self.keep]:
             shutil.rmtree(os.path.join(self.dir, f"step_{s}"), ignore_errors=True)
 
-    def restore_latest(self, like_tree):
+    def restore_latest(self, like_tree, *, shardings=None):
         """``(step, tree, meta)`` of the newest checkpoint, or three
-        ``None`` when there is none."""
+        ``None`` when there is none; ``shardings`` as :func:`restore`."""
         self.wait()
         s = latest_step(self.dir)
         if s is None:
             return None, None, None
-        tree, meta = restore(self.dir, s, like_tree)
+        tree, meta = restore(self.dir, s, like_tree, shardings=shardings)
         return s, tree, meta
 
 

@@ -67,6 +67,29 @@ def reset_launch_counts() -> None:
 _obs_counters.register_launches("flash_attention", launch_counts, reset_launch_counts)
 
 
+def visible_pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the masks leave visible: what B6's work depends
+    on.  Query row i sits at key position i + sk - sq."""
+    total = 0
+    for i in range(sq):
+        pos = i + sk - sq
+        hi = min(sk - 1, pos) if causal else sk - 1
+        lo = max(0, pos - window + 1) if window is not None else 0
+        total += max(hi - lo + 1, 0)
+    return total
+
+
+def launch_work(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                window: int | None) -> tuple[int, int]:
+    """(bytes, operations) of one launch: q, k, v read once and the output
+    written once; 4 D operations per visible (query, key) pair and query
+    head (the two products).  Shapes only: meta tensors do."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    moved = q.element_size() * (2 * b * hq * sq * d + 2 * b * hkv * sk * d)
+    return moved, 4 * d * visible_pairs(sq, sk, causal, window) * b * hq
+
+
 _LIB: ctypes.CDLL | None = None
 
 
@@ -220,5 +243,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 __all__ = ["HEAD_DIMS", "MAX_HEAD_DIM", "ROUTES", "TMA_BOX", "WGMMA_HEAD_DIMS",
            "flash_attention_cuda", "flash_route", "head_dim_instance", "kernel_takes",
-           "launch_counts", "reset_launch_counts", "tma_geometry", "vector_rows",
-           "wgmma_smem_bytes"]
+           "launch_counts", "launch_work", "reset_launch_counts", "tma_geometry",
+           "vector_rows", "visible_pairs", "wgmma_smem_bytes"]

@@ -16,7 +16,13 @@ the card or on the CPU alike:
     allocations (``empty*``, which write nothing) count nothing;
   * ``hbm_bytes`` is each operation's input plus output bytes: every eager
     operation materialises its output, so none is fused away;
-  * ``collective_bytes`` is 0: one process, one device.
+  * a collective (``_c10d_functional`` / ``c10d`` operations: what DTensor
+    and ``models.sharding`` issue) counts its operand's bytes into
+    ``collective_bytes`` and ``per_collective`` under JAX's HLO names
+    (``all-reduce``, ``all-gather``, ``reduce-scatter``, ``all-to-all``,
+    ``collective-permute``), and no FLOPs.  Under a mesh the counter sees
+    each rank's local operations, so its rows are one rank's; the shape
+    propagation DTensor runs on fake tensors is not counted.
 
 ``torch.utils.flop_counter`` alone would count no operation of this engine,
 which has no matmul.  On the card the engine's Poisson-binomial DP is a
@@ -49,6 +55,13 @@ _MATMULS = {"mm", "bmm", "matmul", "addmm", "baddbmm"}
 _ALLOCATIONS = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided"}
 _REDUCTIONS = {"sum", "mean", "prod", "any", "all", "amax", "amin", "max", "min",
                "argmax", "argmin", "norm", "logsumexp", "var", "std"}
+_COLLECTIVE_NS = {"_c10d_functional", "c10d_functional", "c10d"}
+# the collectives DTensor (functional) and models.sharding (c10d) issue, by
+# JAX's HLO name; the operand is the first argument
+_COLLECTIVES = {"all_reduce": "all-reduce", "allreduce": "all-reduce",
+                "all_gather_into_tensor": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "all_to_all_single": "all-to-all", "send": "collective-permute"}
 
 
 @dataclasses.dataclass
@@ -75,6 +88,13 @@ def _nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def _not_local(t: torch.Tensor) -> bool:
+    """A fake tensor: DTensor's shape propagation, not the rank's work."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
+
 def _is_view(func) -> bool:
     return any(r.alias_info is not None and not r.alias_info.is_write
                for r in func._schema.returns)
@@ -95,16 +115,39 @@ class OpCounter(TorchDispatchMode):
         self._paused = False
 
     def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops as fa
         from repro_torch.kernels.poisson_binomial import kernel as pb
 
         pb.add_launch_observer(self.kernel_launch)
+        fa.add_meta_observer(self.flash_work)
         return super().__enter__()
 
     def __exit__(self, *exc):
+        from repro_torch.kernels.flash_attention import ops as fa
         from repro_torch.kernels.poisson_binomial import kernel as pb
 
         pb.remove_launch_observer(self.kernel_launch)
+        fa.remove_meta_observer(self.flash_work)
         return super().__exit__(*exc)
+
+    def flash_work(self, moved: int, ops: int) -> None:
+        """B6 on meta tensors (the dry run): its own launch-work formula,
+        as matmul FLOPs."""
+        c = self.costs
+        c.kernel_launches += 1
+        c.kernel_flops += ops
+        c.kernel_bytes += moved
+        c.matmul_flops += ops
+        c.hbm_bytes += moved
+
+    def _collective(self, name: str, args) -> None:
+        kind = _COLLECTIVES.get(name)
+        if kind is None:          # wait_tensor, recv, barrier: no operand of its own
+            return
+        moved = _nbytes(_tensors(args[0]))
+        c = self.costs
+        c.collective_bytes += moved
+        c.per_collective[kind] = c.per_collective.get(kind, 0) + moved
 
     def kernel_launch(self, probs: torch.Tensor, w: torch.Tensor) -> None:
         """Add one B1 launch's bytes and operations; the operations that
@@ -124,13 +167,22 @@ class OpCounter(TorchDispatchMode):
         c.hbm_bytes += moved
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(t.__name__ == "DTensor" for t in types):
+            # let DTensor desugar the operation into local operations and
+            # collectives, which come back here (as CommDebugMode does)
+            return NotImplemented
         out = func(*args, **(kwargs or {}))
-        if self._paused or _is_view(func):
+        if self._paused:
             return out
         name = func.overloadpacket.__name__.rstrip("_")
-        if name in _ALLOCATIONS:
+        if func.namespace in _COLLECTIVE_NS:
+            self._collective(name, args)
+            return out
+        if _is_view(func) or name in _ALLOCATIONS:
             return out
         ins, outs = _tensors((args, kwargs)), _tensors(out)
+        if any(_not_local(t) for t in ins + outs):
+            return out
         c = self.costs
         if name in _MATMULS and outs:
             c.matmul_flops += _matmul_flops(name, ins, outs[0])

@@ -33,7 +33,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 
 from . import layers as L
+from .sharding import is_dtensor, serving, shard, write_at
 from .lm import (ParamDraws, ParamTree, _embed, _logits, dense_block_params, frozen,
+                 sharded_cache,
                  next_token_loss, stacked_layers)
 
 _STACKS = ("enc_blocks", "blocks", "cross_blocks")
@@ -96,7 +98,7 @@ def _enc_block(x, bp, cfg, positions):
     h = L.attention_train(L.rms_norm(x, bp["ln1"]), bp, cfg, positions=positions,
                           causal=False)
     x = x + h
-    return x + L.mlp(L.rms_norm(x, bp["ln2"]), bp, cfg)
+    return shard(x + L.mlp(L.rms_norm(x, bp["ln2"]), bp, cfg), "dp", None, None)
 
 
 def encode(params: EncDecLM, frames: torch.Tensor, cfg) -> torch.Tensor:
@@ -104,7 +106,7 @@ def encode(params: EncDecLM, frames: torch.Tensor, cfg) -> torch.Tensor:
     the frames' dtype (callers cast them to ``cfg.dtype``, as JAX does)."""
     positions = torch.arange(frames.shape[1], device=frames.device)
     block = _maybe_remat(lambda h, bp: _enc_block(h, bp, cfg, positions), cfg)
-    x = frames
+    x = shard(frames, "dp", None, None)
     for bp in params.stack("enc_blocks"):
         x = block(x, bp)
     return L.rms_norm(x, params["ln_enc"])
@@ -118,7 +120,7 @@ def _dec_block(x, bp, cp, enc_out, cfg, positions):
     x = x + L.attention_train(L.rms_norm(x, bp["ln1"]), bp, cfg, positions=positions)
     x = x + L.attention_train(L.rms_norm(x, cp["ln"]), cp, cfg, positions=positions,
                               kv_x=enc_out)
-    return x + L.mlp(L.rms_norm(x, bp["ln2"]), bp, cfg)
+    return shard(x + L.mlp(L.rms_norm(x, bp["ln2"]), bp, cfg), "dp", None, None)
 
 
 def _decoder(params: EncDecLM, tokens: torch.Tensor, enc_out: torch.Tensor, cfg):
@@ -152,7 +154,7 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=None, device=None) -> d
             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-@torch.inference_mode()
+@serving
 def prefill(params: EncDecLM, batch, cfg, *, max_len: int | None = None):
     """Encode the frames, cache the cross keys and values, prefill the
     decoder's self-attention cache; return (last-position float32 logits
@@ -168,24 +170,33 @@ def prefill(params: EncDecLM, batch, cfg, *, max_len: int | None = None):
     x = _embed(params, tokens, cfg)
     positions = torch.arange(s, device=x.device)
     cache = init_cache(cfg, b, max_len, dtype=x.dtype, device=x.device)
+    sharded = is_dtensor(enc_out)
+    if sharded:
+        cache = sharded_cache(cfg, cache)
     for i, (bp, cp) in enumerate(zip(params.stack("blocks"), params.stack("cross_blocks"))):
         att, (k, v) = L.attention_train(L.rms_norm(x, bp["ln1"]), bp, cfg,
                                         positions=positions, return_kv=True)
-        cache["k"][i, :, :, :s] = k
-        cache["v"][i, :, :, :s] = v
+        ck = L._split_heads(L.dot(enc_out, cp["wk"]), hkv, hd).transpose(1, 2)
+        cv = L._split_heads(L.dot(enc_out, cp["wv"]), hkv, hd).transpose(1, 2)
+        if sharded:
+            for name, t in (("k", k), ("v", v), ("ck", ck), ("cv", cv)):
+                write_at(cache[name][i], 2, 0, t)
+        else:
+            cache["k"][i, :, :, :s] = k
+            cache["v"][i, :, :, :s] = v
+            cache["ck"][i] = ck
+            cache["cv"][i] = cv
         x = x + att
-        cache["ck"][i] = L._split_heads(L.dot(enc_out, cp["wk"]), hkv, hd).transpose(1, 2)
-        cache["cv"][i] = L._split_heads(L.dot(enc_out, cp["wv"]), hkv, hd).transpose(1, 2)
         x = x + L.attention_train(L.rms_norm(x, cp["ln"]), cp, cfg, positions=positions,
                                   kv_x=enc_out)
-        x = x + L.mlp(L.rms_norm(x, bp["ln2"]), bp, cfg)
+        x = shard(x + L.mlp(L.rms_norm(x, bp["ln2"]), bp, cfg), "dp", None, None)
     x = L.rms_norm(x[:, -1:], params["ln_f"])
     logits = _logits(params, x, cfg)[:, 0]
     cache["pos"].fill_(s)
     return logits, cache
 
 
-@torch.inference_mode()
+@serving
 def decode_step(params: EncDecLM, batch, cache: dict, cfg):
     """One-token decode.  batch = {"next_token": (B,)}; ``cache`` from
     :func:`prefill`, its self keys and values written in place and ``pos``

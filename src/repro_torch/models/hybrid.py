@@ -30,7 +30,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 
 from . import layers as L
-from .lm import (ParamDraws, ParamTree, _embed, _logits, frozen, next_token_loss,
+from .sharding import is_dtensor, serving, shard, write_at
+from .lm import (ParamDraws, ParamTree, _embed, _logits, frozen, next_token_loss, sharded_cache,
                  stacked_layers)
 
 
@@ -128,7 +129,7 @@ def train_loss(params: HybridLM, batch, cfg) -> torch.Tensor:
     under ``checkpoint`` (JAX checkpoints its group body; the tail group
     runs outside it)."""
     tokens = batch["tokens"]
-    x = _embed(params, tokens, cfg)
+    x = shard(_embed(params, tokens, cfg), "dp", None, None)
     positions = torch.arange(x.shape[1], device=x.device)
     sp = params["shared"]
     layers = params.layers()
@@ -136,7 +137,8 @@ def train_loss(params: HybridLM, batch, cfg) -> torch.Tensor:
     def group(h, idx):
         h = _shared_block(h, sp, cfg, positions)
         for i in idx:
-            h = h + L.mamba2_scan(L.rms_norm(h, layers[i]["ln"]), layers[i], cfg)
+            h = shard(h + L.mamba2_scan(L.rms_norm(h, layers[i]["ln"]), layers[i], cfg),
+                      "dp", None, None)
         return h
 
     full, _ = group_split(cfg)
@@ -169,7 +171,18 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=None, device=None) -> d
     }
 
 
-@torch.inference_mode()
+def _put_state(cache: dict, i: int, h, conv) -> None:
+    """Layer ``i``'s Mamba2 state and conv window into the cache (a sharded
+    cache takes each rank's pieces)."""
+    if is_dtensor(cache["ssm"]):
+        write_at(cache["ssm"][i], 0, 0, h)
+        write_at(cache["conv"][i], 0, 0, conv)
+    else:
+        cache["ssm"][i] = h
+        cache["conv"][i] = conv
+
+
+@serving
 def prefill(params: HybridLM, batch, cfg, *, max_len: int | None = None):
     """Forward the prompt; return (last-position float32 logits (B, V), the
     cache with ``max_len`` KV slots and ``pos`` = prompt length)."""
@@ -178,27 +191,33 @@ def prefill(params: HybridLM, batch, cfg, *, max_len: int | None = None):
     max_len = max_len or s
     if max_len < s:
         raise ValueError(f"max_len {max_len} is shorter than the prompt ({s})")
-    x = _embed(params, tokens, cfg)
+    x = shard(_embed(params, tokens, cfg), "dp", None, None)
     positions = torch.arange(s, device=x.device)
     sp = params["shared"]
     cache = init_cache(cfg, b, max_len, dtype=x.dtype, device=x.device)
+    sharded = is_dtensor(x)
+    if sharded:
+        cache = sharded_cache(cfg, cache)
     for a, idx in enumerate(_groups(cfg)):
         x, (k, v) = _shared_block(x, sp, cfg, positions, return_kv=True)
-        cache["k"][a, :, :, :s] = k
-        cache["v"][a, :, :, :s] = v
+        if sharded:
+            write_at(cache["k"][a], 2, 0, k)
+            write_at(cache["v"][a], 2, 0, v)
+        else:
+            cache["k"][a, :, :, :s] = k
+            cache["v"][a, :, :, :s] = v
         for i in idx:
             mp = params.layer(i)
             y, (h, conv) = L.mamba2_scan(L.rms_norm(x, mp["ln"]), mp, cfg, return_state=True)
-            x = x + y
-            cache["ssm"][i] = h
-            cache["conv"][i] = conv
+            x = shard(x + y, "dp", None, None)
+            _put_state(cache, i, h, conv)
     x = L.rms_norm(x[:, -1:], params["ln_f"])
     logits = _logits(params, x, cfg)[:, 0]
     cache["pos"].fill_(s)
     return logits, cache
 
 
-@torch.inference_mode()
+@serving
 def decode_step(params: HybridLM, batch, cache: dict, cfg):
     """One-token decode.  batch = {"next_token": (B,)}; ``cache`` from
     :func:`init_cache` or :func:`prefill`, updated in place and returned
@@ -215,8 +234,7 @@ def decode_step(params: HybridLM, batch, cache: dict, cfg):
             mp = params.layer(i)
             y, h, conv = L.mamba2_decode(L.rms_norm(x, mp["ln"]), mp, cfg,
                                          cache["ssm"][i], cache["conv"][i])
-            cache["ssm"][i] = h
-            cache["conv"][i] = conv
+            _put_state(cache, i, h, conv)
             x = x + y
     x = L.rms_norm(x, params["ln_f"])
     logits = _logits(params, x, cfg)[:, 0]

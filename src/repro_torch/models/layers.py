@@ -25,15 +25,18 @@ capacity routing, batched over the examples), Mamba2 / SSD
 (:func:`slstm_scan`).  JAX's ``lax.scan`` over chunks and time steps is a
 Python loop here.
 
-What is left out, and why:
-
-  * the ``shard()`` constraints of ``repro/models/sharding.py``: one card has
-    no mesh, so they are omitted, and ``native_out`` (bf16 partial sums
-    under tensor parallelism) has nothing to act on;
-  * ``_sharded_lse_decode`` (a ``decode_attn="sharded_lse"`` config decodes
-    locally, as JAX does with no mesh) and ``_moe_ep`` (``moe_impl="ep"``
-    routes densely, as JAX does with no mesh); both wait for the multi-card
-    slice (ROADMAP A7c).
+Under an active mesh (:func:`repro_torch.models.sharding.use_mesh`, the
+tensors DTensors), the same functions run sharded, as JAX's do under
+``pjit``: :func:`attention_train` pins q's heads (or, when ``n_heads`` is
+not a multiple of 16, its query sequence) over ``tp`` with JAX's two
+``shard()`` constraints, and runs attention (B6 or a plain version) on
+each rank's local tensors
+(:func:`_attention_sharded`); ``decode_attn="sharded_lse"`` decodes over a
+sequence-sharded cache (:func:`_sharded_lse_decode`), and
+``moe_impl="ep"`` routes each rank's own experts (:func:`_moe_ep`).
+``native_out`` (bf16 partial sums under tensor parallelism) has no effect:
+the port's row-parallel partial sums are added in the output's dtype by
+DTensor's all-reduce either way.
 
 :func:`attention_decode` writes the new key and value into the cache in
 place; JAX returns updated copies (aliased to donated buffers).
@@ -49,6 +52,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import visible_mask
+
+from . import sharding
+from .sharding import is_dtensor, shard
 
 Params = Mapping[str, torch.Tensor]
 DECODE_ATTN = ("auto", "local", "sharded_lse")
@@ -104,8 +110,33 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 # attention (GQA + qk-norm + sliding window)
 # ---------------------------------------------------------------------------
 
+def _whole(x: torch.Tensor, dim: int, outer: int) -> torch.Tensor:
+    """Before splitting axis ``dim`` into (``outer``, rest): a DTensor split
+    over that axis more ways than ``outer`` divides is gathered on it
+    (DTensor unflattens an axis only along whole outer blocks).  Anything
+    else as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, dim = x.device_mesh, dim % x.ndim
+    places = [Replicate() if isinstance(pl, Shard) and pl.dim % x.ndim == dim
+              and outer % mesh.size(i) else pl for i, pl in enumerate(x.placements)]
+    return x if places == list(x.placements) else x.redistribute(mesh, places)
+
+
+def _batch_only(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor laid out over its batch axis (0) alone: every other split
+    or partial sum gathered."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    places = [pl if isinstance(pl, Shard) and pl.dim % x.ndim == 0 else Replicate()
+              for pl in x.placements]
+    return sharding.redistribute(x, x.device_mesh, places)
+
+
 def _split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
-    return x.reshape(x.shape[:-1] + (n, d))
+    return _whole(x, -1, n).reshape(x.shape[:-1] + (n, d))
 
 
 def _qk_normalize(q, k, p, cfg):
@@ -141,23 +172,68 @@ def attention_train(
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions[:sk] if positions.shape[0] >= sk else positions,
                  cfg.rope_theta)
-    q = q.transpose(1, 2)                                # (B, Hq, S, Dh)
+    # attention activation sharding: heads over tp when divisible, otherwise
+    # context-parallel (query-sequence over tp) — DESIGN §5.
+    if hq % 16 == 0:
+        q = shard(q.transpose(1, 2), "dp", "tp", None, None)   # (B, Hq, S, Dh)
+    else:
+        q = shard(q.transpose(1, 2), "dp", None, "tp", None)
     k = k.transpose(1, 2)                                # (B, Hkv, Sk, Dh)
     v = v.transpose(1, 2)
 
     is_causal = causal and kv_x is None
-    impl = getattr(cfg, "attn_impl", "ref")
-    if impl == "flash":
-        o = flash_attention(q, k, v, causal=is_causal, window=cfg.window)
-    elif impl == "blockwise":
-        o = _blockwise_attention(q, k, v, causal=is_causal, window=cfg.window)
+    attend = {"flash": flash_attention, "blockwise": _blockwise_attention}.get(
+        getattr(cfg, "attn_impl", "ref"), _dense_attention)
+    if is_dtensor(q):
+        o = _attention_sharded(attend, q, k, v, causal=is_causal, window=cfg.window)
     else:
-        o = _dense_attention(q, k, v, causal=is_causal, window=cfg.window)
+        o = attend(q, k, v, causal=is_causal, window=cfg.window)
     o = o.transpose(1, 2).reshape(b, s, hq * hd)
     y = dot(o, p["wo"], native_out=getattr(cfg, "bf16_reduce", False))
     if return_kv:
         return y, (k, v)
     return y
+
+
+def _attention_sharded(attend, q, k, v, *, causal: bool, window: int | None):
+    """Attention under a mesh: each rank runs ``attend`` (B6, whose
+    ``ctypes`` launch takes no DTensor, or a plain version) on local
+    tensors, ``shard_map``'s body.
+
+    Heads over ``tp`` (q's placement ``Shard(1)``): each rank runs its own
+    q heads against the KV heads they read -- k and v split over ``tp``
+    with q when the KV heads divide, else gathered and each q head given
+    its own copy of its KV head (their gradients then partial sums over
+    ``tp``).  Query sequence over ``tp``: B6 has no query-offset argument,
+    so q is gathered and every rank runs the whole sequence, as XLA's
+    partitioner must for an opaque custom call.  The output keeps q's
+    placements."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    tp_dim = (mesh.mesh_dim_names.index("model")
+              if "model" in mesh.mesh_dim_names else None)
+    heads = tp_dim is not None and q.placements[tp_dim] == Shard(1)
+    places = list(q.placements)
+    for i, p in enumerate(places):
+        if isinstance(p, Shard) and p.dim != 0 and not (heads and i == tp_dim):
+            places[i] = Replicate()
+    q = sharding.redistribute(q, mesh, places)
+    hq, hkv = q.shape[1], k.shape[1]
+    tp = mesh.size(tp_dim) if heads else 1
+    if heads and hkv % tp == 0:
+        k, v = (sharding.redistribute(t, mesh, places).to_local() for t in (k, v))
+    else:
+        kv_places = [Replicate() if i == tp_dim else p for i, p in enumerate(places)]
+        grads = [Partial() if heads and i == tp_dim else p for i, p in enumerate(kv_places)]
+        k, v = (sharding.redistribute(t, mesh, kv_places).to_local(grad_placements=grads)
+                for t in (k, v))
+        if heads:                         # each local q head's own KV head
+            lo = sharding.axis_index(mesh, "model") * (hq // tp)
+            idx = torch.arange(lo, lo + hq // tp, device=k.device) // (hq // hkv)
+            k, v = k.index_select(1, idx), v.index_select(1, idx)
+    o = attend(q.to_local(), k, v, causal=causal, window=window)
+    return DTensor.from_local(o, mesh, places, run_check=False)
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -248,32 +324,50 @@ def attention_decode(
     at ``pos`` (self-attention).
 
     ``cfg.decode_attn`` may be ``auto``, ``local`` or ``sharded_lse``; any
-    other value raises.  All three take the local path here: JAX takes its
-    sharded path (``_sharded_lse_decode``, flash-decoding over a
-    sequence-sharded cache) only under an active mesh, and the port has no
-    mesh; that path waits for the multi-card slice (ROADMAP A7c)."""
+    other value raises.  ``sharded_lse`` takes :func:`_sharded_lse_decode`
+    under an active mesh, and the local path otherwise, as in JAX.  Under a
+    mesh the local path runs on DTensors; a sharded cache takes the new
+    token on the rank that owns its position
+    (:func:`~repro_torch.models.sharding.write_at`)."""
     if getattr(cfg, "decode_attn", "auto") not in DECODE_ATTN:
         raise ValueError(f"decode_attn {cfg.decode_attn!r} is not one of {DECODE_ATTN}")
     b = x_t.shape[0]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     q = _split_heads(dot(x_t, p["wq"]), hq, hd)          # (B,1,Hq,Dh)
     g = hq // hkv
+    sharded = (getattr(cfg, "decode_attn", "auto") == "sharded_lse" and not cross
+               and sharding.active_mesh() is not None)   # needs an active mesh
     if not cross:
         k_new = _split_heads(dot(x_t, p["wk"]), hkv, hd)
         v_new = _split_heads(dot(x_t, p["wv"]), hkv, hd)
         q, k_new = _qk_normalize(q, k_new, p, cfg)
         q = rope(q, pos[None], cfg.rope_theta)
         k_new = rope(k_new, pos[None], cfg.rope_theta)
-        at = pos.reshape(1).to(torch.int64)
-        cache_k.index_copy_(2, at, k_new.transpose(1, 2).to(cache_k.dtype))
-        cache_v.index_copy_(2, at, v_new.transpose(1, 2).to(cache_v.dtype))
+        if sharded:
+            qg = _whole(q[:, 0], 1, hkv).reshape(b, hkv, g, hd)
+            o, cache_k, cache_v = _sharded_lse_decode(
+                qg, k_new.transpose(1, 2).to(cache_k.dtype),
+                v_new.transpose(1, 2).to(cache_v.dtype), cache_k, cache_v, pos, cfg)
+            o = o.reshape(b, 1, hq * hd).to(x_t.dtype)
+            return dot(o, p["wo"]), cache_k, cache_v
+        if is_dtensor(cache_k):
+            sharding.write_at(cache_k, 2, pos, k_new.transpose(1, 2).to(cache_k.dtype))
+            sharding.write_at(cache_v, 2, pos, v_new.transpose(1, 2).to(cache_v.dtype))
+        else:
+            at = pos.reshape(1).to(torch.int64)
+            cache_k.index_copy_(2, at, k_new.transpose(1, 2).to(cache_k.dtype))
+            cache_v.index_copy_(2, at, v_new.transpose(1, 2).to(cache_v.dtype))
         valid_len = pos + 1
     else:
         if cfg.qk_norm:
             q, _ = _qk_normalize(q, q, p, cfg)
         valid_len = pos
 
-    qg = q[:, 0].reshape(b, hkv, g, hd)
+    qg = _whole(q[:, 0], 1, hkv).reshape(b, hkv, g, hd)
+    if is_dtensor(cache_k):
+        # the query whole on every rank of its batch slice: the products
+        # with a sequence-sharded cache come out split over the sequence
+        qg = _batch_only(qg)
     # float32 products of the cache's values, summed in float32
     s = torch.matmul(qg.to(cache_k.dtype).to(_F32),
                      cache_k.to(_F32).transpose(-1, -2)) * (hd ** -0.5)
@@ -287,6 +381,71 @@ def attention_decode(
     o = o.reshape(b, 1, hq * hd).to(x_t.dtype)
     y = dot(o, p["wo"])
     return y, cache_k, cache_v
+
+
+def _sharded_lse_decode(qg, k_new, v_new, cache_k, cache_v, pos, cfg):
+    """Flash-decoding over a sequence-sharded KV cache (§Perf C).
+
+    Each ``tp`` rank holds a contiguous sequence slice of the cache.  The
+    owning rank performs a 1-token read-modify-write (never a full-shard
+    masked rewrite), every rank computes partial attention over its slice,
+    and the ranks merge with a log-sum-exp correction: one MAX and two SUM
+    all-reduces over ``tp`` (JAX's pmax / psum).
+
+    qg (B,Hkv,G,Dh), k_new / v_new (B,Hkv,1,Dh) replicated over tp; caches
+    (B,Hkv,S,Dh) laid out P(dp,·,tp,·), written in place.  Returns (o
+    (B,Hkv,G,Dh) float32 replicated over tp, cache_k, cache_v).  Raises with
+    no mesh active (the caller takes the local path then).
+    """
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = sharding.active_mesh()
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        raise RuntimeError("decode_attn=sharded_lse requires an active mesh")
+    hd = qg.shape[-1]
+    scale = hd ** -0.5
+    window = cfg.window
+    tp_dim = mesh.mesh_dim_names.index("model")
+    for name, c in (("cache_k", cache_k), ("cache_v", cache_v)):
+        if (not is_dtensor(c) or c.placements[tp_dim] != Shard(2)
+                or any(isinstance(pl, Shard) and pl.dim != 0 and i != tp_dim
+                       for i, pl in enumerate(c.placements))):
+            raise ValueError(f"sharded_lse: {name} must be a DTensor laid out "
+                             "P(dp, ., tp, .)")
+    # q and the new token: the cache's batch layout, replicated over tp
+    rep4 = tuple(Replicate() if i == tp_dim else pl for i, pl in enumerate(cache_k.placements))
+    qg_l, kn_l, vn_l = (sharding.local(sharding.redistribute(t, mesh, rep4))
+                        for t in (qg, k_new, v_new))
+    ck_l, cv_l = cache_k.to_local(), cache_v.to_local()
+    pos = sharding.local(pos)                       # replicated: every rank's is whole
+    tp_i = sharding.axis_index(mesh, "model")
+    s_loc = ck_l.shape[2]
+    start = tp_i * s_loc
+    rel = pos.to(torch.int64) - start
+    in_range = (rel >= 0) & (rel < s_loc)
+    relc = rel.clamp(0, s_loc - 1).reshape(1)
+    # 1-token read-modify-write on the local slice
+    for c_l, n_l in ((ck_l, kn_l), (cv_l, vn_l)):
+        old = c_l.index_select(2, relc)
+        c_l.index_copy_(2, relc, torch.where(in_range, n_l.to(c_l.dtype), old))
+    # partial attention over the local slice
+    s = torch.matmul(qg_l.to(ck_l.dtype).to(_F32),
+                     ck_l.to(_F32).transpose(-1, -2)) * scale       # (B,Hkv,G,S_loc)
+    k_pos = start + torch.arange(s_loc, device=ck_l.device)
+    mask = k_pos <= pos
+    if window is not None:
+        mask &= k_pos > pos - window
+    s = torch.where(mask, s, _NEG)
+    m_loc = s.amax(dim=-1)                                           # (B,Hkv,G)
+    p_ = torch.where(mask, torch.exp(s - m_loc[..., None]), 0.0)
+    l_loc = p_.sum(dim=-1)
+    o_loc = torch.matmul(p_.to(cv_l.dtype).to(_F32), cv_l.to(_F32))
+    m_g = sharding.all_reduce(m_loc.clone(), "max", mesh, "model")
+    corr = torch.exp(m_loc - m_g)
+    l_g = sharding.all_reduce(l_loc * corr, "sum", mesh, "model")
+    o = sharding.all_reduce(o_loc * corr[..., None], "sum", mesh, "model")
+    o = o / torch.clamp(l_g, min=1e-30)[..., None]
+    return DTensor.from_local(o, mesh, rep4, run_check=False), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------
@@ -370,31 +529,76 @@ def moe(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
     dtype in route order, as JAX's scatter-add into x's dtype adds them.
     Dropped routes pass through the residual unchanged.
 
-    ``cfg.moe_impl == "ep"`` (olmoe) routes the same way: JAX takes its
-    expert-parallel ``_moe_ep`` only under an active mesh, and the port has
-    none; that path waits for the multi-card slice (ROADMAP A7c)."""
-    b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
+    ``cfg.moe_impl == "ep"`` (requires E % tp == 0 and an active mesh with
+    a ``"model"`` axis): expert-parallel (:func:`_moe_ep`).  Otherwise, as
+    in JAX, the dense route (under a mesh on DTensors)."""
+    mesh = sharding.active_mesh()
+    if (getattr(cfg, "moe_impl", "dense") == "ep" and mesh is not None
+            and "model" in mesh.mesh_dim_names
+            and cfg.n_experts % sharding.mesh_size(mesh, "model") == 0):
+        return _moe_ep(x, p, cfg, mesh)
     r = moe_routes(x, p, cfg)
+    return _moe_dispatch(x, r, r.keep, r.experts, cfg.n_experts,
+                         p.get("w_gate"), p["w_up"], p["w_down"], cfg)
+
+
+def _moe_dispatch(x, r: MoeRoutes, keep, experts, e: int, w_gate, w_up, w_down, cfg):
+    """The expert products of :func:`moe` over ``e`` experts: the kept
+    routes (``keep``) to ``experts`` (indices into the ``e`` experts of
+    ``w_gate`` / ``w_up`` / ``w_down``) fill the (E, B cap, d) buffer, and
+    each token gets its k contributions added in x's dtype."""
+    b, s, d = x.shape
+    k = cfg.top_k
     slot = r.rank.clamp(max=r.cap - 1)
     tok = torch.arange(s, device=x.device).repeat_interleave(k)
     row = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
-    src = torch.where(r.keep[..., None], x[:, tok], 0.0)  # (B, S*k, d)
+    src = torch.where(keep[..., None], x[:, tok], 0.0)    # (B, S*k, d)
     buf = x.new_zeros((e, b, r.cap, d))
-    buf.index_put_((r.experts, row, slot), src, accumulate=True)
+    buf.index_put_((experts, row, slot), src, accumulate=True)
     xe = buf.view(e, b * r.cap, d)
     if cfg.mlp_type == "swiglu":
-        h = silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+        h = silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)
     else:
-        h = F.gelu(torch.bmm(xe, p["w_up"]), approximate="tanh")
-    out = torch.bmm(h, p["w_down"]).view(e, b, r.cap, d)
-    gathered = out[r.experts, row, slot]                   # (B, S*k, d)
-    contrib = (gathered.to(_F32) * (r.gates * r.keep)[..., None]).to(x.dtype)
+        h = F.gelu(torch.bmm(xe, w_up), approximate="tanh")
+    out = torch.bmm(h, w_down).view(e, b, r.cap, d)
+    gathered = out[experts, row, slot]                     # (B, S*k, d)
+    contrib = (gathered.to(_F32) * (r.gates * keep)[..., None]).to(x.dtype)
     contrib = contrib.view(b, s, k, d)
     y = contrib[:, :, 0]
     for j in range(1, k):
         y = y + contrib[:, :, j]
     return y
+
+
+def _moe_ep(x: torch.Tensor, p: Params, cfg, mesh) -> torch.Tensor:
+    """Expert-parallel MoE over the tp axis (see :func:`moe`).
+
+    Each tp rank owns E/tp experts outright (``param_shardings``' ep
+    layout; gathered to it otherwise), routes the tokens of its local batch
+    slice with the full router, keeps its own experts' routes -- a route's
+    rank among its expert's routes is the same as on the dense route -- and
+    the ranks' partial outputs are added with one SUM all-reduce over tp.
+    x (B,S,d) is laid out P(dp,·,·); so is the output."""
+    from torch.distributed.tensor import DTensor
+
+    e = cfg.n_experts
+    ep = sharding.mesh_size(mesh, "model")
+    e_loc = e // ep
+    lo = sharding.axis_index(mesh, "model") * e_loc
+    dp = sharding.resolve(("dp",))[0]
+    x_l = sharding.local(sharding.shard(x, dp, None, None))
+    router = sharding.full(p["router"])
+    w = [None if p.get(n) is None else
+         sharding.local(sharding.shard(p[n], "tp", None, None))
+         for n in ("w_gate", "w_up", "w_down")]
+    r = moe_routes(x_l, {"router": router}, cfg)
+    mine = (r.experts >= lo) & (r.experts < lo + e_loc)
+    loc_e = (r.experts - lo).clamp(0, e_loc - 1)
+    y = _moe_dispatch(x_l, r, r.keep & mine, loc_e, e_loc, *w, cfg)
+    y = sharding.all_reduce(y, "sum", mesh, "model")   # combine shards' expert outputs
+    out = DTensor.from_local(y, mesh, sharding.placements(mesh, (dp, None, None)),
+                             run_check=False)
+    return out if is_dtensor(x) else out.full_tensor()
 
 
 # ---------------------------------------------------------------------------

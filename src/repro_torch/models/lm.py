@@ -14,7 +14,8 @@ but the port writes into it in place: :func:`prefill` writes each layer's
 keys and values straight into a preallocated cache, and :func:`decode_step`
 writes the new token's at ``pos`` and returns the same dict with ``pos``
 advanced (JAX returns a new cache built in a donated buffer).  Both run
-under ``torch.inference_mode()``.
+under ``torch.inference_mode()`` (``torch.no_grad()`` under a mesh:
+``sharding.serving``).
 
 Training: :func:`train_loss` is JAX's mean next-token cross-entropy, run
 outside inference mode through a differentiable :func:`_run_blocks`
@@ -47,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 
 from . import layers as L
+from .sharding import is_dtensor, serving, shard, write_at
 
 _F32 = torch.float32
 
@@ -203,8 +205,43 @@ def init_params(generator: torch.Generator, cfg, device=None) -> DecoderLM:
 # ---------------------------------------------------------------------------
 
 def _embed(params: DecoderLM, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    x = F.embedding(tokens, params["embed"])
+    """The scaled embeddings of ``tokens`` (:func:`_sharded_embedding` for a
+    sharded table)."""
+    w = params["embed"]
+    x = _sharded_embedding(tokens, w) if is_dtensor(w) else F.embedding(tokens, w)
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+
+
+def _sharded_embedding(tokens: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A lookup into a (V, d) DTensor table, vocabulary-parallel: the
+    table's d axis is gathered, each rank looks its batch rows' tokens up in
+    its own vocabulary slice (0 for a token outside it) and a SUM
+    all-reduce over the vocabulary's axes adds the slices (every token's
+    row comes from one rank; the others add exact zeros).  Returns a
+    DTensor laid out over the batch as ``tokens`` is, replicated otherwise.
+    (DTensor's own lookup into a vocabulary-sharded table is not used.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from . import sharding
+
+    mesh = w.device_mesh
+    w = sharding.redistribute(w, mesh, [pl if isinstance(pl, Shard) and pl.dim == 0
+                                        else Replicate() for pl in w.placements])
+    rows = [isinstance(pl, Shard) and pl.dim == 0 for pl in
+            (tokens.placements if is_dtensor(tokens) else [Replicate()] * mesh.ndim)]
+    tok_places = [Shard(0) if r else Replicate() for r in rows]
+    tok = sharding.local(sharding.redistribute(tokens, mesh, tok_places))
+    # the table's gradient on a rank is the sum over its own batch rows only
+    local_w = w.to_local(grad_placements=[Partial() if r else pl
+                                          for r, pl in zip(rows, w.placements)])
+    lo = sharding.local_region(w.shape, mesh, w.placements)[0][0]
+    ids = tok.long() - lo
+    inside = (ids >= 0) & (ids < local_w.shape[0])
+    out = F.embedding(ids.clamp(0, local_w.shape[0] - 1), local_w) * inside[..., None]
+    for i, pl in enumerate(w.placements):
+        if isinstance(pl, Shard):
+            out = sharding.all_reduce(out, "sum", mesh, mesh.mesh_dim_names[i])
+    return DTensor.from_local(out, mesh, tok_places, run_check=False)
 
 
 def _embed_sequence(params: DecoderLM, batch, cfg):
@@ -212,9 +249,9 @@ def _embed_sequence(params: DecoderLM, batch, cfg):
     -> (B, S_total, d), and the number of prefix (non-text) positions."""
     x = _embed(params, batch["tokens"], cfg)
     if cfg.frontend != "vision_stub":
-        return x, 0
+        return shard(x, "dp", None, None), 0
     patches = L.dot(batch["patches"].to(x.dtype), params["patch_proj"])   # (B, P, d)
-    return torch.cat([patches, x], dim=1), patches.shape[1]
+    return shard(torch.cat([patches, x], dim=1), "dp", None, None), patches.shape[1]
 
 
 def _logits(params: DecoderLM, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -223,8 +260,12 @@ def _logits(params: DecoderLM, x: torch.Tensor, cfg) -> torch.Tensor:
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.matmul(x.to(_F32), head.to(_F32))
     if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e30
-    return logits
+        if is_dtensor(logits):
+            pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
+            logits = torch.where(pad, -1e30, logits)
+        else:
+            logits[..., cfg.vocab_size:] = -1e30
+    return shard(logits, "dp", None, "tp")
 
 
 def _block_tail(x: torch.Tensor, bp, cfg) -> torch.Tensor:
@@ -238,7 +279,9 @@ def _block_tail(x: torch.Tensor, bp, cfg) -> torch.Tensor:
 
 def _block(x: torch.Tensor, bp, cfg, positions: torch.Tensor) -> torch.Tensor:
     h = L.attention_train(L.rms_norm(x, bp["ln1"]), bp, cfg, positions=positions)
-    return _block_tail(x + h, bp, cfg)
+    # Megatron-SP option: inter-block activations sharded over sequence on the
+    # tp axis, turning the TP output all-reduces into reduce-scatters (§Perf).
+    return shard(_block_tail(x + h, bp, cfg), "dp", "tp" if cfg.act_seq_shard else None, None)
 
 
 def _run_blocks(x: torch.Tensor, params: DecoderLM, cfg,
@@ -284,12 +327,38 @@ def train_loss(params: DecoderLM, batch, cfg) -> torch.Tensor:
 
 def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy of float32 text logits (B, S, V) against the next
-    tokens."""
+    tokens (:func:`_sharded_next_token_loss` for DTensor logits)."""
+    if is_dtensor(logits):
+        return _sharded_next_token_loss(logits, tokens)
     pred = logits[:, :-1]
     tgt = tokens[:, 1:].long()
     lse = torch.logsumexp(pred, dim=-1)
     true = torch.gather(pred, -1, tgt[..., None])[..., 0]
     return torch.mean(lse - true)
+
+
+def _sharded_next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The loss of DTensor logits: gathered over the vocabulary, each rank's
+    mean over its own batch rows, divided by the number of row slices and
+    added over them (equal slices: the mean over all rows).  A replicated
+    0-d DTensor.  (DTensor's gather along a sharded vocabulary is not
+    used.)"""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from . import sharding
+
+    mesh = logits.device_mesh
+    places = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+              for pl in logits.placements]
+    lg = sharding.redistribute(logits, mesh, places).to_local()
+    tk = sharding.local(sharding.redistribute(tokens, mesh, places))
+    loss = next_token_loss(lg, tk)
+    row_axes = [mesh.mesh_dim_names[i] for i, pl in enumerate(places) if isinstance(pl, Shard)]
+    if row_axes:
+        loss = loss / math.prod(sharding.mesh_size(mesh, a) for a in row_axes)
+        for axis in row_axes:
+            loss = sharding.all_reduce(loss, "sum", mesh, axis)
+    return DTensor.from_local(loss, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -307,7 +376,15 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=None, device=None) -> d
     }
 
 
-@torch.inference_mode()
+def sharded_cache(cfg, cache: dict) -> dict:
+    """``cache`` placed on the active mesh by ``api.cache_shardings``: the
+    prefill of a sharded model writes into its own pieces of it."""
+    from repro_torch.models import api, sharding
+
+    return api.distribute_tree(cache, api.cache_shardings(cfg, sharding.active_mesh(), cache))
+
+
+@serving
 def prefill(params: DecoderLM, batch, cfg, *, max_len: int | None = None):
     """Forward the prompt; return (last-position float32 logits (B, V), the
     KV cache with ``max_len`` slots and ``pos`` = prompt length)."""
@@ -318,20 +395,26 @@ def prefill(params: DecoderLM, batch, cfg, *, max_len: int | None = None):
         raise ValueError(f"max_len {max_len} is shorter than the prompt ({s_total})")
     positions = torch.arange(s_total, device=x.device)
     cache = init_cache(cfg, b, max_len, dtype=x.dtype, device=x.device)
+    if is_dtensor(x):
+        cache = sharded_cache(cfg, cache)
     for i in range(cfg.n_layers):
         bp = params.layer(i)
         att, (k, v) = L.attention_train(L.rms_norm(x, bp["ln1"]), bp, cfg,
                                         positions=positions, return_kv=True)
-        cache["k"][i, :, :, :s_total] = k
-        cache["v"][i, :, :, :s_total] = v
-        x = _block_tail(x + att, bp, cfg)
+        if is_dtensor(x):
+            write_at(cache["k"][i], 2, 0, k)
+            write_at(cache["v"][i], 2, 0, v)
+        else:
+            cache["k"][i, :, :, :s_total] = k
+            cache["v"][i, :, :, :s_total] = v
+        x = shard(_block_tail(x + att, bp, cfg), "dp", None, None)
     x = L.rms_norm(x[:, -1:], params["ln_f"])
     logits = _logits(params, x, cfg)[:, 0]
     cache["pos"].fill_(s_total)
     return logits, cache
 
 
-@torch.inference_mode()
+@serving
 def decode_step(params: DecoderLM, batch, cache: dict, cfg):
     """One-token decode.  batch = {"next_token": (B,)}; ``cache`` from
     :func:`init_cache` or :func:`prefill`, updated in place and returned
@@ -350,4 +433,5 @@ def decode_step(params: DecoderLM, batch, cache: dict, cfg):
 
 
 __all__ = ["DecoderLM", "ParamDraws", "ParamTree", "decode_step", "dense_block_params",
-           "init_cache", "init_params", "next_token_loss", "prefill", "train_loss"]
+           "init_cache", "init_params", "next_token_loss", "prefill", "sharded_cache",
+           "train_loss"]

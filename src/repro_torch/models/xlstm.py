@@ -25,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 
 from . import layers as L
+from .sharding import serving, shard
 from .lm import ParamDraws, ParamTree, _embed, _logits, frozen, next_token_loss
 
 _CONV = 4       # the mLSTM block's causal conv width
@@ -112,9 +113,9 @@ def _mlstm_block(x, p, cfg, *, state=None, return_state: bool = False):
     conv_state_out = conv_in[:, -(_CONV - 1):]
     x_c = L.silu(L._causal_conv(conv_in, p["conv_w"], p["conv_b"])[:, -s:])
 
-    q = L.dot(x_c, p["wq"]).reshape(b, s, h, dh)
-    k = L.dot(x_c, p["wk"]).reshape(b, s, h, dh)
-    v = L.dot(x_in, p["wv"]).reshape(b, s, h, dh)
+    q = L._split_heads(L.dot(x_c, p["wq"]), h, dh)
+    k = L._split_heads(L.dot(x_c, p["wk"]), h, dh)
+    v = L._split_heads(L.dot(x_in, p["wv"]), h, dh)
     if_pre = L.dot(x_in, p["w_if"]).to(torch.float32) + p["b_if"]
     i_pre, f_pre = if_pre.chunk(2, dim=-1)                 # (B,S,H)
 
@@ -130,7 +131,8 @@ def _mlstm_block(x, p, cfg, *, state=None, return_state: bool = False):
 def _slstm_block(x, p, cfg, *, state=None, return_state: bool = False):
     b, s, d = x.shape
     h = cfg.n_heads
-    gates = L.dot(L.rms_norm(x, p["ln"]), p["w_gates"]).reshape(b, s, 4, h, d // h)
+    gates = L._whole(L.dot(L.rms_norm(x, p["ln"]), p["w_gates"]), -1, 4).reshape(
+        b, s, 4, h, d // h)
     out = L.slstm_scan(gates.transpose(2, 3), p["r"], initial=state,
                        return_state=return_state)          # gates (B,S,H,4,D)
     if return_state:
@@ -145,7 +147,7 @@ def _slstm_block(x, p, cfg, *, state=None, return_state: bool = False):
 
 def _forward(params: XLSTMLM, tokens, cfg, caches=None, return_states: bool = False,
              remat: bool = False):
-    x = _embed(params, tokens, cfg)
+    x = shard(_embed(params, tokens, cfg), "dp", None, None)
     states = []
     for i, kind in enumerate(block_types(cfg)):
         blk = _slstm_block if kind == "slstm" else _mlstm_block
@@ -193,7 +195,7 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=None, device=None) -> d
     return {"blocks": tuple(caches), "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-@torch.inference_mode()
+@serving
 def prefill(params: XLSTMLM, batch, cfg, *, max_len: int | None = None):
     """Forward the prompt from the initial state; return (last-position
     float32 logits (B, V), the cache with ``pos`` = prompt length)."""
@@ -206,7 +208,7 @@ def prefill(params: XLSTMLM, batch, cfg, *, max_len: int | None = None):
     return logits, {"blocks": tuple(states), "pos": start["pos"]}
 
 
-@torch.inference_mode()
+@serving
 def decode_step(params: XLSTMLM, batch, cache: dict, cfg):
     """One-token decode.  batch = {"next_token": (B,)}; returns (logits,
     ``cache``) with the new states in ``cache["blocks"]`` and ``pos``

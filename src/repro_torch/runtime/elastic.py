@@ -1,9 +1,11 @@
-"""Elastic scaling: carry LEA estimator history across pool resizes.
+"""Elastic scaling: reshard state across mesh-size changes (DESIGN §7).
 
-Survivors keep their transition counts; newcomers start from the pooled
-average of the survivors' counts (a better prior than the 0.5 cold start).
-Re-sharding model state across a changed set of cards belongs to the
-multi-card work of the port (ROADMAP Queue A, A7).
+The checkpoint format is mesh-agnostic (full host arrays), so growing or
+shrinking the cluster = restore with the new mesh's shardings
+(``checkpoint.restore(..., shardings=)``), or :func:`reshard_state` of a
+live state.  LEA estimator counts follow the worker pool: survivors keep
+their history, newcomers start from the pooled average (a better prior
+than the 0.5 cold start).
 """
 
 from __future__ import annotations
@@ -12,6 +14,16 @@ import numpy as np
 import torch
 
 from repro_torch.core import lea
+
+
+def reshard_state(state, shardings):
+    """Every tensor of ``state`` placed on the new mesh's shardings (a tree
+    of the same structure: ``api.state_shardings`` of the new mesh); a
+    DTensor is gathered from its old mesh first, a collective every rank of
+    the old mesh joins (``jax.device_put`` of each leaf)."""
+    from repro_torch.models.api import distribute_tree
+
+    return distribute_tree(state, shardings)
 
 
 def remap_estimator(est: lea.EstimatorState, old_n: int, new_n: int,
@@ -45,4 +57,4 @@ def remap_estimator(est: lea.EstimatorState, old_n: int, new_n: int,
     )
 
 
-__all__ = ["remap_estimator"]
+__all__ = ["remap_estimator", "reshard_state"]
