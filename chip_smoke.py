@@ -8,7 +8,9 @@ Phases, one line each (any failure raises and exits non-zero):
 
   1. environment: the card's name and power limit (``nvidia-smi``), torch and
      CUDA versions, and the nvcc builds of every ``csrc/*.cu``, one nvcc
-     process per source, all started together;
+     process per source, all started together, with ptxas's register and
+     spill lines (a spill in a wgmma kernel, or its warning C7514, fails)
+     and the wgmma route's shared memory at each instantiation;
   2. each kernel entry point against its plain PyTorch version on the card,
      bit for bit: the per-row entry on the sweep engine's layout (probabilities
      (2, 256, 20 000, 15), thresholds (1, 256, 1, 15) read as they lie; also
@@ -954,7 +956,7 @@ def check_flash_kernel() -> dict:
     """Phase 9: B6 against ``flash_attention_ref`` on the card, timed."""
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                       flash_attention_ref, flash_route,
-                                                      head_dim_instance)
+                                                      head_dim_instance, wgmma_instance)
     from repro_torch.kernels.flash_attention.ref import visible_mask
 
     gen = torch.Generator(device="cuda")
@@ -974,8 +976,8 @@ def check_flash_kernel() -> dict:
         # Mixtral's attention widths; the window cut from its 4096 so that
         # masking matters at 4096 tokens and the plain version fits
         ("mixtral window", 1, 48, 8, 4096, 4096, 128, bf16, True, 1024, False),
-        # the head widths of the repo's other configs (mma.sync and FFMA
-        # instantiations past the wgmma route's 64 and 128), at their heads
+        # the head widths of the repo's other configs, at their heads: the
+        # wgmma route's padded instantiations (128 for 96 and 112, 192)
         ("phi-3-vision d96", 1, 32, 32, 2048, 2048, 96, bf16, True, None, False),
         ("zamba2 d112", 1, 32, 32, 2048, 2048, 112, bf16, True, None, False),
         ("nemotron-4 d192", 1, 96, 8, 1024, 1024, 192, bf16, True, None, False),
@@ -988,13 +990,13 @@ def check_flash_kernel() -> dict:
         # the FFMA route at D = 192 (no config runs float32 attention there)
         ("float32 d192", 1, 4, 4, 2048, 2048, 192, f32, True, None, False),
         # phase 17's prefills: olmoe's MHA with qk-norm, mixtral past its own
-        # 4096-token window, zamba2's shared block (D = 112, the mma route)
+        # 4096-token window, zamba2's shared block (D = 112)
         ("olmoe-1b-7b mha 16/16", 4, 16, 16, 2048, 2048, 128, bf16, True, None, False),
         ("mixtral-8x22b window 4096", 1, 48, 8, 6144, 6144, 128, bf16, True, 4096, False),
         ("zamba2-7b d112 batch 4", 4, 32, 32, 2048, 2048, 112, bf16, True, None, False),
         # phase 18's prefills: whisper-tiny's bidirectional encoder over its
         # 1500 frames and its cross-attention (432 text queries over them),
-        # phi-3-vision's 32 heads of 96 (the mma route) at batch 4
+        # phi-3-vision's 32 heads of 96 at batch 4
         ("whisper encoder", 8, 6, 6, 1500, 1500, 64, bf16, False, None, False),
         ("whisper cross", 8, 6, 6, 432, 1500, 64, bf16, False, None, False),
         ("phi-3-vision d96 batch 4", 4, 32, 32, 2048, 2048, 96, bf16, True, None, False),
@@ -1041,7 +1043,7 @@ def check_flash_kernel() -> dict:
                             FP32_FLOP_PER_S if dt == f32 else BF16_FLOP_PER_S)
         route = flash_route(dt, d)
         log("kernel", name="flash_attention_cuda", case=json.dumps(what), route=route,
-            instantiation=d if route == "wgmma" else head_dim_instance(d),
+            instantiation=wgmma_instance(d) if route == "wgmma" else head_dim_instance(d),
             q=(b, hq, sq, d), kv=(b, hkv, sk, d), dtype=str(dt).split(".")[-1],
             causal=causal, window=window, zero_rows=zero_rows, max_abs_err=err,
             tolerance=json.dumps(tol),
@@ -3501,6 +3503,10 @@ def main() -> int:
                 kernel = re.sub(r"^_Z(N\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+)?\d+", "", entry.group(1))[:60]
             elif "registers" in line or "spill" in line or "C7514" in line:
                 log("ptxas", source=built.name, kernel=kernel, line=json.dumps(line.strip()))
+                spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if "C7514" in line or (kernel.startswith("flash_wgmma_kernel") and spills
+                                       and spills.groups() != ("0", "0")):
+                    raise AssertionError(f"ptxas on the wgmma route ({kernel}): {line.strip()}")
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     log("wgmma_smem", **{f"d{d}_bytes": fa_kernel.wgmma_smem_bytes(d)
                          for d in fa_kernel.WGMMA_HEAD_DIMS})

@@ -18,16 +18,20 @@
 // exp2 of scores pre-multiplied by scale * log2(e).
 //
 // Routes, chosen by the wrapper from the dtype and D alone (flash_route):
-//   wgmma  bf16 / fp16, D = 64 or 128 (the serving path): flash_wgmma_kernel
+//   wgmma  bf16 / fp16, D from 64 to 192 and a multiple of 8 (every config's
+//          serving path): flash_wgmma_kernel
 //   mma    bf16 / fp16, any other D from 1 to 256: flash_mma_kernel
 //   ffma   float32, D from 1 to 256: flash_f32_kernel
-// The mma and ffma kernels are instantiated at D = 16, 32, 64, 96, 128, 160,
-// 192 and 256 (kHeadDims); a head dimension d between two of them runs the
-// next one up. Its columns past d are loaded as zeros and never stored:
-// zeros change neither q . k nor the kept columns of P V, so the result is
-// the function's own. Where d is a whole number of 16-byte vectors and every
-// row is 16-byte aligned (Params::vec), tiles move as 16-byte vectors;
-// otherwise element by element. Their K and V tiles sit in dynamic shared
+// The wgmma kernel is instantiated at padded widths DP = 64, 128 and 192
+// (wgmma_instance: 64 for d = 64, 128 for d = 72 ... 128, 192 above), the mma
+// and ffma kernels at D = 16, 32, 64, 96, 128, 160, 192 and 256 (kHeadDims);
+// a head dimension d between two of them runs the next one up. Its columns
+// past d are loaded as zeros (TMA's zero fill on the wgmma route) and never
+// stored: zeros change neither q . k nor the kept columns of P V, so the
+// result is the function's own. Where d is a whole number of 16-byte
+// vectors and every row is 16-byte aligned (Params::vec), tiles move as
+// 16-byte vectors; otherwise element by element (the wgmma route takes only
+// the former). The mma and ffma kernels' K and V tiles sit in dynamic shared
 // memory, opted in above 48 KB (D >= 192).
 //
 // Layout. Every tensor is read through its own (batch, head, sequence)
@@ -52,7 +56,10 @@
 //
 // wgmma route, what the design does about that bound. A persistent grid,
 // one block a streaming multiprocessor, walks work items of 128 query rows
-// of one (batch, query head), longest first. A block has three warpgroups.
+// of one (batch, query head), longest first within chunks of (batch, head)
+// pairs whose K and V fit in 32 MB of the L2 (all 64 pairs of the prefill
+// above; 36 of zamba2's 128, whose K and V take 117 MB, else re-read from
+// device memory by each query tile). A block has three warpgroups.
 // The producer (registers lowered to 24 with setmaxnreg) has one thread
 // load each item's Q into one of two Q buffers, then K and V tiles of 128
 // keys of KV head h / group into a two-stage ring (192 KB of dynamic shared
@@ -80,17 +87,38 @@
 // branch, ptxas cannot prove the accumulators idle and serialises every
 // wgmma of the kernel (its warning C7514).
 // The epilogue scales by 1 / l and writes the tile through the warpgroup's
-// rows of its Q buffer, in Q's swizzled layout, as 16-byte row stores.
+// rows of its Q buffer, in Q's swizzled layout, as 16-byte row stores of
+// the first d columns.
 // P's rounding to the input type moves each output by at most
 // 2^-9 * sum_j p_j |v_j| / l <= 2^-9 max|v| (about 2^-8 max|v| with the
 // output's own rounding to bf16), row by row, against flash_attention_ref;
 // the TPU kernel keeps P in float32.
 //
-// mma route (16-bit, D other than 64 and 128): four warps of 16 query rows;
-// each 64-key tile of K and V is loaded synchronously into shared memory
-// (rows padded by 16 bytes), S and O on mma.sync.m16n8k16, V's fragments from
-// ldmatrix.trans. The same P rounding and bound. A thread holds D / 2 floats
-// of O and D / 4 words of Q, so at D = 256 ptxas spills some of them.
+// Widths that are not whole boxes (d = 96, 112: phi-3-vision, zamba2). The
+// kernel runs at DP = 128 with the tensor maps' extent d, so box columns d
+// ... 127 arrive as TMA's zero fill, and both products run at the padded
+// width: 128 / d of the tensor cores' work, 1.33 at d = 96 and 1.14 at
+// d = 112 (zamba2's prefill, q (4, 32, 2048, 112) over 32 KV heads: bound
+// 0.1217 ms at d, 0.1391 ms at DP). Skipping the padding's k-steps of S
+// under a guard predicate (6 of 8 at d = 96) left phi-3-vision's time as it
+// was (0.2993 against 0.29-0.32 ms, tools/kernel_ab.py on the H100): S's
+// width is not what sets the pace at that shape.
+//
+// d = 136 ... 192 (nemotron-4, 96 heads of 192): DP = 192, three boxes a
+// row. Two Q buffers and a two-stage ring of 128-key tiles would take 6 x 48
+// KB, above the 227 KB (232 448 bytes) a block may opt into, so the K / V
+// tiles are 64 keys there: S on m64n64k16 (32 floats a thread), O += P V on
+// m64n192k16 (96 floats), four k16 steps of P a tile. 2 x 48 + 2 x (24 + 24)
+// KB: 197 728 bytes with the barriers and alignment, as at DP = 128; O and S
+// take 128 of the consumers' 240 registers. A row meets twice as many tiles,
+// so twice the barrier waits and row reductions per key.
+//
+// mma route (16-bit, a D the wgmma route does not take): four warps of 16
+// query rows; each 64-key tile of K and V is loaded synchronously into
+// shared memory (rows padded by 16 bytes), S and O on mma.sync.m16n8k16, V's
+// fragments from ldmatrix.trans. The same P rounding and bound. A thread
+// holds D / 2 floats of O and D / 4 words of Q, so at D = 256 ptxas spills
+// some of them.
 //
 // ffma route (float32): the same loop on FFMA in true float32 (no TF32
 // anywhere): a pair of lanes owns one query row, each holding half of q and
@@ -131,6 +159,7 @@ struct Params {
   int window;                    // < 0: no window
   float scale_log2;              // scale * log2(e)
   int heads, batch, q_tiles;     // the wgmma route's work items: q_tiles x heads x batch
+  int pairs;                     // ... taken (batch, head) pairs by chunks of this many
   int d;                         // the head dimension; the instantiation's D >= d
   int vec;                       // d a whole number of 16-byte vectors, rows aligned
 };
@@ -164,7 +193,7 @@ __device__ __forceinline__ bool tile_full(const Params& p, const Range& r, int k
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / fp16 at D other than 64 and 128 on mma.sync
+// bf16 / fp16 at a D the wgmma route does not take, on mma.sync
 // ---------------------------------------------------------------------------
 
 // Eight 16-bit elements from column c of a row (c < d), zero past d: one
@@ -531,29 +560,39 @@ flash_f32_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / fp16 at D = 64 and 128 on Hopper: a TMA ring, wgmma, warp specialised
+// bf16 / fp16 at D = 64 ... 192 on Hopper: a TMA ring, wgmma, warp specialised
 // ---------------------------------------------------------------------------
 
 constexpr int kWgRows = 128;          // query rows a block: two consumers of 64
-constexpr int kWgKeys = 128;          // keys a tile
 constexpr int kStages = 2;            // depth of the K / V ring
 constexpr int kWgThreads = 384;       // a producer warpgroup and two consumers
 constexpr int kConsumerWarps = 8;
 constexpr int kBoxCols = 64;          // 128-byte swizzle: 64 16-bit values a box row
-constexpr int kBoxBytes = 128 * 128;  // one (128 rows x 64 columns) TMA box
+constexpr int kRowBytes = 128;        // one box row
 constexpr int kProducerRegs = 24;     // setmaxnreg: 128 x (24 + 2 x 240) <= 65 536
 constexpr int kConsumerRegs = 240;
+// K and V bytes of the (batch, head) pairs that the persistent grid works on
+// at once (work_item): about two thirds of the H100's 50 MB L2, so that a
+// pair's K and V stay there from its first query tile to its last.
+constexpr long long kL2Chunk = 32LL << 20;
 
-// Dynamic shared memory of a block, from a 1 KB aligned base: two Q buffers,
-// the K ring, the V ring (each tile D / 64 boxes), then the mbarriers.
-template <int D>
+// The wgmma kernel at padded width DP (64, 128 or 192: whole boxes): keys a
+// K / V tile, and the dynamic shared memory of a block, from a 1 KB aligned
+// base: two Q buffers, the K ring, the V ring (each tile DP / 64 boxes of
+// its rows), then the mbarriers. Tiles of 128 keys at DP <= 128, of 64 at
+// DP = 192, where 128 would need 6 x 48 KB > the 227 KB a block may have.
+template <int DP>
 struct WgSmem {
-  static constexpr int kBoxes = D / kBoxCols;
-  static constexpr int kTile = kBoxes * kBoxBytes;
-  static constexpr int kQ = 0;                        // buffer i at kQ + i kTile
-  static constexpr int kK = 2 * kTile;                // stage s at kK + s kTile
-  static constexpr int kV = kK + kStages * kTile;
-  static constexpr int kBar = kV + kStages * kTile;   // full, free of Q[i]; of K[s], V[s]
+  static constexpr int kKeys = DP > 128 ? 64 : 128;
+  static constexpr int kBoxes = DP / kBoxCols;
+  static constexpr int kQBox = kWgRows * kRowBytes;   // one (128 rows x 64 columns) box
+  static constexpr int kKVBox = kKeys * kRowBytes;
+  static constexpr int kQTile = kBoxes * kQBox;
+  static constexpr int kKVTile = kBoxes * kKVBox;
+  static constexpr int kQ = 0;                        // buffer i at kQ + i kQTile
+  static constexpr int kK = 2 * kQTile;               // stage s at kK + s kKVTile
+  static constexpr int kV = kK + kStages * kKVTile;
+  static constexpr int kBar = kV + kStages * kKVTile;   // full, free of Q[i]; of K[s], V[s]
   static constexpr int kBytes = kBar + 8 * (4 + 4 * kStages) + 1024;  // + alignment
 };
 
@@ -649,184 +688,163 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// The accumulator operands of a wgmma: "+f" of d[i] .. d[i + 7], and the
+// register lists "{%0, ..., %N-1}" that name them in the instruction.
+#define WG_ACC8(i)                                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),         \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_ACC32 WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24)
+#define WG_ACC64 WG_ACC32, WG_ACC8(32), WG_ACC8(40), WG_ACC8(48), WG_ACC8(56)
+#define WG_ACC96 WG_ACC64, WG_ACC8(64), WG_ACC8(72), WG_ACC8(80), WG_ACC8(88)
+#define WG_D32 "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" "}"
+#define WG_D64 "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" "}"
+#define WG_D96 "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95" "}"
+
 // Accumulator layout of m64nNk16 (float32), thread t of the warpgroup: warp
 // w = t / 32 owns rows 16 w + (t % 32) / 4 and that + 8; register 4 j + i is
 // (row + 8 (i / 2), column 8 j + 2 (t % 4) + i % 2). The A operand from
 // registers (m64k16) has the mma.sync m16n8k16 fragment layout per warp.
+// ss: S (64 x N) = A (64 x 16, shared, K-major) B^T (N x 16, shared,
+// K-major), N = 128 or 64; rs: O (64 x N) += A (64 x 16, registers) B (16 x
+// N, shared, MN-major), N = 64, 128 or 192. N is twice the registers of d.
 template <typename T>
 struct Wgmma;
 
 template <>
 struct Wgmma<__nv_bfloat16> {
-  // S (64 x 128) = A (64 x 16, shared, K-major) B^T (128 x 16, shared, K-major)
-  static __device__ __forceinline__ void ss_n128(float (&d)[64], uint64_t a,
-                                                 uint64_t b, int scale_d) {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b,
+                                            int scale_d) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-        "%58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
-          "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
-          "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
-          "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
-          "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-          "+f"(d[62]), "+f"(d[63])
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WG_ACC32
         : "l"(a), "l"(b), "r"(scale_d));
   }
-  // O (64 x 128) += A (64 x 16, registers) B (16 x 128, shared, MN-major)
-  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],
-                                                 uint64_t b) {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b,
+                                            int scale_d) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-        "%58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
-          "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
-          "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
-          "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
-          "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-          "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : WG_ACC64
+        : "l"(a), "l"(b), "r"(scale_d));
   }
-  // O (64 x 64) += A (64 x 16, registers) B (16 x 64, shared, MN-major)
   static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
-                                                 uint64_t b) {
+                                            uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-        "%30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
-          "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
-          "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WG_ACC32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : WG_ACC64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[96], const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " WG_D96
+        ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : WG_ACC96
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
 
+
 template <>
 struct Wgmma<__half> {
-  // S (64 x 128) = A (64 x 16, shared, K-major) B^T (128 x 16, shared, K-major)
-  static __device__ __forceinline__ void ss_n128(float (&d)[64], uint64_t a,
-                                                 uint64_t b, int scale_d) {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b,
+                                            int scale_d) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-        "%58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
-          "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
-          "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
-          "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
-          "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-          "+f"(d[62]), "+f"(d[63])
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " WG_D32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WG_ACC32
         : "l"(a), "l"(b), "r"(scale_d));
   }
-  // O (64 x 128) += A (64 x 16, registers) B (16 x 128, shared, MN-major)
-  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],
-                                                 uint64_t b) {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b,
+                                            int scale_d) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-        "%58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
-          "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
-          "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
-          "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
-          "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-          "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " WG_D64
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : WG_ACC64
+        : "l"(a), "l"(b), "r"(scale_d));
   }
-  // O (64 x 64) += A (64 x 16, registers) B (16 x 64, shared, MN-major)
   static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
-                                                 uint64_t b) {
+                                            uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-        "%30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
-          "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-          "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
-          "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " WG_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WG_ACC32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " WG_D64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : WG_ACC64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[96], const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.f16.f16 " WG_D96
+        ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : WG_ACC96
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
 
 // One work item: 128 query rows of one (batch, query head), and the key
-// tiles they need.
+// tiles of `keys` keys they need.
 struct Item {
   int q0, h, b, hk, n_tiles;
   Range r;
 };
 
-// Item w in longest-first order: the query tiles from the last one down are
+// Item w: the (batch, head) pairs go by chunks of p.pairs, and within a
+// chunk in longest-first order: the query tiles from the last one down are
 // the slowest index, so the longest causal rows come first.
-__device__ __forceinline__ Item work_item(const Params& p, int w) {
+__device__ __forceinline__ Item work_item(const Params& p, int w, int keys) {
   Item t;
-  const int bh = p.heads * p.batch;
-  const int z = w / bh, rest = w - z * bh;
+  const int per = p.q_tiles * p.pairs;              // the items of a whole chunk
+  const int c = w / per;
+  const int first = c * p.pairs;                    // the chunk's first pair
+  const int size = min(p.pairs, p.heads * p.batch - first);
+  const int rest = w - c * per;
+  const int z = rest / size, pair = first + rest % size;
   t.q0 = (p.q_tiles - 1 - z) * kWgRows;
-  t.h = rest % p.heads;
-  t.b = rest / p.heads;
+  t.h = pair % p.heads;
+  t.b = pair / p.heads;
   t.hk = t.h / p.group;
-  t.r = block_range(p, t.q0, kWgRows, kWgKeys);
-  t.n_tiles = t.r.k_end > t.r.k_begin ? (t.r.k_end - t.r.k_begin + kWgKeys - 1) / kWgKeys : 0;
+  t.r = block_range(p, t.q0, kWgRows, keys);
+  t.n_tiles = t.r.k_end > t.r.k_begin ? (t.r.k_end - t.r.k_begin + keys - 1) / keys : 0;
   return t;
 }
 
@@ -834,12 +852,13 @@ __device__ __forceinline__ Item work_item(const Params& p, int w) {
 // blockIdx.x, blockIdx.x + gridDim.x, ... The K / V ring and the two Q
 // buffers run on from one item to the next, so the producer loads the next
 // item's Q and first tiles while the consumers finish the current one.
-template <typename T, int D>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, const Params p) {
-  using L = WgSmem<D>;
+  using L = WgSmem<DP>;
+  constexpr int KT = L::kKeys;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;   // swizzle atoms are 1 KB
   const uint32_t q_full = base + L::kBar;           // Q of buffer i arrived
@@ -875,23 +894,23 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (tid == 0) {
       int kv = 0, n = 0;
       for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++n) {
-        const Item t = work_item(p, w);
+        const Item t = work_item(p, w, KT);
         auto load = [&](const CUtensorMap* map, uint32_t full, uint32_t free, uint32_t at,
                         int it) {
           const int s = (kv + it) % kStages;
           mbar_wait(free + 8 * s, (((kv + it) / kStages) & 1) ^ 1);   // first pass: free
-          mbar_expect_tx(full + 8 * s, L::kTile);
+          mbar_expect_tx(full + 8 * s, L::kKVTile);
 #pragma unroll
           for (int x = 0; x < L::kBoxes; ++x)
-            tma_load(at + s * L::kTile + x * kBoxBytes, map, full + 8 * s, x * kBoxCols,
-                     t.r.k_begin + it * kWgKeys, t.hk, t.b);
+            tma_load(at + s * L::kKVTile + x * L::kKVBox, map, full + 8 * s, x * kBoxCols,
+                     t.r.k_begin + it * KT, t.hk, t.b);
         };
         const int qb = n & 1;
         mbar_wait(q_free + 8 * qb, ((n >> 1) & 1) ^ 1);
-        mbar_expect_tx(q_full + 8 * qb, L::kTile);
+        mbar_expect_tx(q_full + 8 * qb, L::kQTile);
 #pragma unroll
         for (int x = 0; x < L::kBoxes; ++x)
-          tma_load(base + L::kQ + qb * L::kTile + x * kBoxBytes, &tm_q, q_full + 8 * qb,
+          tma_load(base + L::kQ + qb * L::kQTile + x * L::kQBox, &tm_q, q_full + 8 * qb,
                    x * kBoxCols, t.q0, t.h, t.b);
         if (t.n_tiles > 0) load(&tm_k, k_full, k_free, base + L::kK, 0);
         for (int it = 0; it < t.n_tiles; ++it) {
@@ -913,46 +932,46 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int cw = wg - 1;
     const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
     const int off = p.sk - p.sq;
-    float o[D / 2], sc[64];
+    float o[DP / 2], sc[KT / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
-    uint32_t pa[8][4];             // P of the previous tile, the A operand of P V
+    for (int i = 0; i < KT / 2; ++i) sc[i] = 0.f;
+    uint32_t pa[KT / 16][4];       // P of the previous tile, the A operand of P V
     float m[2], l[2], alpha[2];
     int kv = 0, n = 0;
 
     for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++n) {
-      const Item t = work_item(p, w);
+      const Item t = work_item(p, w, KT);
       const int qb = n & 1;
       const int rows0 = t.q0 + cw * 64;
       const int row0 = rows0 + warp * 16 + g, row1 = row0 + 8;
-      const Range rc = block_range(p, rows0, 64, kWgKeys);     // this warpgroup's rows
-      const uint32_t q_at = base + L::kQ + qb * L::kTile + cw * 64 * 128;  // its 64 rows
+      const Range rc = block_range(p, rows0, 64, KT);          // this warpgroup's rows
+      const uint32_t q_at = base + L::kQ + qb * L::kQTile + cw * 64 * kRowBytes;  // its rows
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
       m[0] = m[1] = -INFINITY;
       l[0] = l[1] = 0.f;           // this lane's part of the row sums
 
-      // S = Q K^T for tile it in D / 16 steps: step kk's 32 bytes sit at
+      // S = Q K^T for tile it in DP / 16 steps: step kk's 32 bytes sit at
       // (kk % 4) * 32 in the swizzled 128-byte rows of box kk / 4; 8-row
       // groups 1 KB apart.
       auto issue_s = [&](int it) {
-        const uint32_t k_at = base + L::kK + ((kv + it) % kStages) * L::kTile;
+        const uint32_t k_at = base + L::kK + ((kv + it) % kStages) * L::kKVTile;
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t at = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-          Wgmma<T>::ss_n128(sc, wg_desc(q_at + at, 16, 1024), wg_desc(k_at + at, 16, 1024),
-                            kk > 0);
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint32_t at = (kk % 4) * 32;
+          Wgmma<T>::ss(sc, wg_desc(q_at + (kk / 4) * L::kQBox + at, 16, 1024),
+                       wg_desc(k_at + (kk / 4) * L::kKVBox + at, 16, 1024), kk > 0);
         }
       };
       // O += P V for tile it: P (rounded to T) is the A operand from
       // registers, the S accumulators of n-tiles 2 j and 2 j + 1 making
       // k-step j; V is the MN-major B operand: 16 keys (two 8-row groups,
-      // 1 KB apart) a step, its 64-column boxes kBoxBytes apart.
+      // 1 KB apart) a step, its 64-column boxes L::kKVBox apart.
       auto issue_pv = [&](int it) {
-        const uint32_t v_at = base + L::kV + ((kv + it) % kStages) * L::kTile;
+        const uint32_t v_at = base + L::kV + ((kv + it) % kStages) * L::kKVTile;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          Wgmma<T>::rs(o, pa[j], wg_desc(v_at + j * 2048, kBoxBytes, 1024));
+        for (int j = 0; j < KT / 16; ++j)
+          Wgmma<T>::rs(o, pa[j], wg_desc(v_at + j * 16 * kRowBytes, L::kKVBox, 1024));
       };
       auto wait_full = [&](uint32_t full, int it) {
         mbar_wait(full + 8 * ((kv + it) % kStages), ((kv + it) / kStages) & 1);
@@ -970,21 +989,21 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       // not see becomes -inf, in one pass of its own so that the other tiles
       // run no mask. Row maxima and sums run as four partial chains a row.
       auto softmax = [&](int it) {
-        const int k0 = t.r.k_begin + it * kWgKeys;
+        const int k0 = t.r.k_begin + it * KT;
         float c = p.scale_log2;
         if (!(c > 0.f)) {
 #pragma unroll
-          for (int e = 0; e < 64; ++e) sc[e] *= c;
+          for (int e = 0; e < KT / 2; ++e) sc[e] *= c;
           c = 1.f;
         }
-        if (!tile_full(p, rc, k0, kWgKeys)) {
+        if (!tile_full(p, rc, k0, KT)) {
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const int pos = (half ? row1 : row0) + off;
             const int lo = p.window >= 0 ? pos - p.window + 1 : 0;    // visible keys: [lo, hi]
             const int hi = p.causal ? min(pos, p.sk - 1) : p.sk - 1;
 #pragma unroll
-            for (int j = 0; j < 16; ++j) {
+            for (int j = 0; j < KT / 8; ++j) {
 #pragma unroll
               for (int i = 2 * half; i < 2 * half + 2; ++i) {
                 const int key = k0 + 8 * j + 2 * t4 + (i & 1);
@@ -999,7 +1018,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
           for (int q = 0; q < 4; ++q) part[j][q] = -INFINITY;
 #pragma unroll
-        for (int e = 0; e < 64; ++e)
+        for (int e = 0; e < KT / 2; ++e)
           part[(e >> 1) & 1][(e >> 2) & 3] = fmaxf(part[(e >> 1) & 1][(e >> 2) & 3], sc[e]);
         float neg_base[2];
 #pragma unroll
@@ -1018,7 +1037,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
           for (int q = 0; q < 4; ++q) part[j][q] = 0.f;
 #pragma unroll
-        for (int e = 0; e < 64; ++e) {
+        for (int e = 0; e < KT / 2; ++e) {
           sc[e] = fast_exp2(fmaf(sc[e], c, neg_base[(e >> 1) & 1]));
           part[(e >> 1) & 1][(e >> 2) & 3] += sc[e];
         }
@@ -1028,14 +1047,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       };
       auto rescale_and_pack = [&]() {
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < DP / 8; ++j) {
           o[4 * j] *= alpha[0];
           o[4 * j + 1] *= alpha[0];
           o[4 * j + 2] *= alpha[1];
           o[4 * j + 3] *= alpha[1];
         }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < KT / 16; ++j) {
           pa[j][0] = Mma<T>::pack(sc[8 * j], sc[8 * j + 1]);
           pa[j][1] = Mma<T>::pack(sc[8 * j + 2], sc[8 * j + 3]);
           pa[j][2] = Mma<T>::pack(sc[8 * j + 4], sc[8 * j + 5]);
@@ -1093,8 +1112,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       // 0. The normalised tile goes through this warpgroup's rows of the Q
       // buffer (done with once its last S is), in Q's own 128-byte-swizzled
       // layout, so the 4-byte writes and the 16-byte reads hit distinct
-      // banks, and leaves as whole rows of 16-byte stores, rows past Sq
-      // skipped. Then the Q buffer is free for the item after next.
+      // banks, and leaves as 16-byte stores of the first d columns (the
+      // padding's are zeros, never stored), rows past Sq skipped. Then the
+      // Q buffer is free for the item after next.
       float inv[2];
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -1104,12 +1124,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       uint8_t* stage = smem_raw + (q_at - smem_u32(smem_raw));
       auto chunk_at = [&](int row, int chunk) {    // row of this warpgroup, 16-byte chunk
-        return (chunk / 8) * kBoxBytes + row * 128 + (((chunk % 8) ^ (row % 8)) << 4);
+        return (chunk / 8) * L::kQBox + row * kRowBytes + (((chunk % 8) ^ (row % 8)) << 4);
       };
       const int r0 = warp * 16 + g;
       named_sync_wg(3 + cw);           // the warpgroup's products are done with Q
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DP / 8; ++j) {
         *reinterpret_cast<uint32_t*>(stage + chunk_at(r0, j) + 4 * t4) =
             Mma<T>::pack(o[4 * j] * inv[0], o[4 * j + 1] * inv[0]);
         *reinterpret_cast<uint32_t*>(stage + chunk_at(r0 + 8, j) + 4 * t4) =
@@ -1117,11 +1137,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       named_sync_wg(3 + cw);
       T* og = static_cast<T*>(p.o) + t.b * p.o_sb + t.h * p.o_sh;
+      const int chunks = p.d / 8;
 #pragma unroll
-      for (int i = 0; i < D / 16; ++i) {           // 64 rows x D / 8 chunks, 128 threads
+      for (int i = 0; i < DP / 16; ++i) {          // 64 rows x DP / 8 chunks, 128 threads
         const int q = tid + 128 * i;
-        const int row = q / (D / 8), chunk = q % (D / 8);
-        if (rows0 + row < p.sq)
+        const int row = q / (DP / 8), chunk = q % (DP / 8);
+        if (rows0 + row < p.sq && chunk < chunks)
           *reinterpret_cast<uint4*>(og + (rows0 + row) * p.o_ss + chunk * 8) =
               *reinterpret_cast<const uint4*>(stage + chunk_at(row, chunk));
       }
@@ -1172,7 +1193,15 @@ int encode_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
   return res == CUDA_SUCCESS ? 0 : kErrMapRefused;
 }
 
-template <typename T, int D>
+// The wgmma route's instantiation (padded width) that runs head dimension d:
+// 64 at d = 64, 128 at d = 72 ... 128, 192 at d = 136 ... 192, d a multiple
+// of 8 (whole 16-byte rows, TMA's unit); 0 for any other d.
+int wgmma_instance(int d) {
+  if (d % 8 != 0 || d < 64 || d > 192) return 0;
+  return d == 64 ? 64 : d <= 128 ? 128 : 192;
+}
+
+template <typename T, int DP>
 int launch_wgmma(const Params& p, const unsigned long long* geom, int b, int hq,
                  cudaStream_t stream) {
   const CUtensorMapDataType type = std::is_same<T, __half>::value
@@ -1180,14 +1209,15 @@ int launch_wgmma(const Params& p, const unsigned long long* geom, int b, int hq,
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const void* ptrs[3] = {p.q, p.k, p.v};
   CUtensorMap maps[3];
-  for (int i = 0; i < 3; ++i) {
+  for (int i = 0; i < 3; ++i) {   // q in boxes of 128 rows, k and v of a key tile's
     const unsigned long long* g = geom + 9 * i;
-    if (g[0] != (unsigned long long)D || g[7] != kBoxCols || g[8] != kWgKeys)
+    const unsigned long long rows = i == 0 ? kWgRows : WgSmem<DP>::kKeys;
+    if (g[0] != (unsigned long long)p.d || g[7] != kBoxCols || g[8] != rows)
       return (int)cudaErrorInvalidValue;
     const int err = encode_map(&maps[i], ptrs[i], type, g);
     if (err != 0) return err;
   }
-  constexpr int kSmem = WgSmem<D>::kBytes;
+  constexpr int kSmem = WgSmem<DP>::kBytes;
   static bool attribute_set[kMaxDevices] = {};   // before an instance's first launch
   int device = 0;
   const cudaError_t got = cudaGetDevice(&device);
@@ -1195,7 +1225,7 @@ int launch_wgmma(const Params& p, const unsigned long long* geom, int b, int hq,
   if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (!attribute_set[device]) {
     const cudaError_t set = cudaFuncSetAttribute(
-        flash_wgmma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        flash_wgmma_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (set != cudaSuccess) return (int)set;
     attribute_set[device] = true;
   }
@@ -1208,7 +1238,7 @@ int launch_wgmma(const Params& p, const unsigned long long* geom, int b, int hq,
   const long long items = (long long)p.q_tiles * hq * b;
   if (items > 0x7fffffffll) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)(items < sms[device] ? items : sms[device]));
-  flash_wgmma_kernel<T, D><<<grid, kWgThreads, kSmem, stream>>>(maps[0], maps[1], maps[2], p);
+  flash_wgmma_kernel<T, DP><<<grid, kWgThreads, kSmem, stream>>>(maps[0], maps[1], maps[2], p);
   return (int)cudaGetLastError();
 }
 
@@ -1263,8 +1293,11 @@ template <typename T>
 int launch_16bit(const Params& p, int route, const unsigned long long* geom, int b, int hq,
                  int d, cudaStream_t stream) {
   if (route == kRouteWgmma && geom != nullptr) {
-    if (d == 64) return launch_wgmma<T, 64>(p, geom, b, hq, stream);
-    if (d == 128) return launch_wgmma<T, 128>(p, geom, b, hq, stream);
+    switch (wgmma_instance(d)) {
+      case 64: return launch_wgmma<T, 64>(p, geom, b, hq, stream);
+      case 128: return launch_wgmma<T, 128>(p, geom, b, hq, stream);
+      case 192: return launch_wgmma<T, 192>(p, geom, b, hq, stream);
+    }
     return (int)cudaErrorInvalidValue;
   }
   if (route != kRouteMma) return (int)cudaErrorInvalidValue;
@@ -1330,6 +1363,12 @@ extern "C" int flash_attention_fwd(
   p.heads = hq;
   p.batch = b;
   p.q_tiles = (sq + kWgRows - 1) / kWgRows;
+  {   // the wgmma route's chunks of (batch, head) pairs whose K and V fit kL2Chunk
+    const long long pair_bytes = 4LL * sk * d / p.group;   // a pair's share of K and V
+    const long long pairs = (long long)hq * b;
+    const long long g = pair_bytes > 0 ? kL2Chunk / pair_bytes : pairs;
+    p.pairs = (int)(g < 1 ? 1 : g > pairs ? pairs : g);
+  }
   p.d = d;
   p.vec = vec ? 1 : 0;
   if (route == kRouteWgmma && !p.vec) return (int)cudaErrorInvalidValue;
@@ -1343,8 +1382,11 @@ extern "C" int flash_attention_fwd(
 // Dynamic shared memory of one block of the wgmma route at head dimension d
 // (0 for a d it does not take).
 extern "C" int flash_attention_wgmma_smem_bytes(int d) {
-  if (d == 64) return WgSmem<64>::kBytes;
-  if (d == 128) return WgSmem<128>::kBytes;
+  switch (wgmma_instance(d)) {
+    case 64: return WgSmem<64>::kBytes;
+    case 128: return WgSmem<128>::kBytes;
+    case 192: return WgSmem<192>::kBytes;
+  }
   return 0;
 }
 

@@ -5,11 +5,12 @@ source (``kernels/csrc/flash_attention.cu``) states the design and bound.
 
 It takes q (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D) of one float type on one
 CUDA device, with 1 <= D <= 256 and Hq a multiple of Hkv.  The dtype and D
-alone choose the kernel (:func:`flash_route`): bfloat16 and float16 at
-D = 64 and 128 take the Hopper kernel (TMA ring, wgmma, warp specialised),
-at any other D the mma.sync kernel; float32 takes the FFMA kernel.  The
-mma.sync and FFMA kernels are instantiated at :data:`HEAD_DIMS`, and a D
-between two of them runs the next one up (:func:`head_dim_instance`),
+alone choose the kernel (:func:`flash_route`): bfloat16 and float16 at a
+D from 64 to 192 that is a multiple of 8 take the Hopper kernel (TMA ring,
+wgmma, warp specialised), at any other D the mma.sync kernel; float32
+takes the FFMA kernel.  Each kernel is instantiated at a few widths
+(:data:`WGMMA_HEAD_DIMS`, :data:`HEAD_DIMS`), and a D between two of them
+runs the next one up (:func:`wgmma_instance`, :func:`head_dim_instance`),
 with the columns past D read as zeros and never stored.  The tensors need
 not be contiguous: every route reads each tensor through its batch, head
 and sequence strides (the wgmma route through a 4-D TMA tensor map built
@@ -39,11 +40,15 @@ from repro_torch.obs import counters as _obs_counters
 # the head dimensions the mma.sync and FFMA kernels are instantiated at
 HEAD_DIMS = (16, 32, 64, 96, 128, 160, 192, 256)
 MAX_HEAD_DIM = HEAD_DIMS[-1]
-WGMMA_HEAD_DIMS = (64, 128)
+# the wgmma kernel's instantiations (widths padded to whole 64-column TMA
+# boxes) and the keys of a K / V tile at each: 64 at 192, so that two Q
+# buffers and a two-stage ring fit the card's shared memory
+WGMMA_HEAD_DIMS = (64, 128, 192)
+WGMMA_KEY_TILES = {64: 128, 128: 128, 192: 64}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 ROUTES = {"ffma": 0, "mma": 1, "wgmma": 2}
 # One TMA box: 64 16-bit columns (the 128-byte swizzle's span) by 128 rows
-# (the kernel's query and key tiles).
+# (the kernel's query tile; a key tile's rows at D > 128 are WGMMA_KEY_TILES').
 TMA_BOX = (64, 128)
 _TMA_STRIDE_MAX = 2**40
 _HOST_ERRORS = {-1: "the CUDA driver offers no cuTensorMapEncodeTiled",
@@ -117,44 +122,57 @@ def head_dim_instance(d: int) -> int:
     return next(D for D in HEAD_DIMS if d <= D)
 
 
+def wgmma_instance(d: int) -> int:
+    """The wgmma kernel's instantiation that runs head dimension ``d`` (the
+    smallest of :data:`WGMMA_HEAD_DIMS` at or above it), or 0 where the
+    route does not take ``d``: below 64, above 192, or rows that are not
+    whole 16-byte vectors (TMA's unit)."""
+    if d % 8 or not WGMMA_HEAD_DIMS[0] <= d <= WGMMA_HEAD_DIMS[-1]:
+        return 0
+    return next(D for D in WGMMA_HEAD_DIMS if d <= D)
+
+
 def flash_route(dtype: torch.dtype, d: int) -> str:
     """The kernel that takes ``dtype`` at head dimension ``d``: ``"wgmma"``
-    for bfloat16 / float16 at D = 64 and 128, ``"mma"`` for them at any
-    other D up to 256, ``"ffma"`` for float32."""
+    for bfloat16 / float16 where :func:`wgmma_instance` takes ``d``,
+    ``"mma"`` for them at any other D up to 256, ``"ffma"`` for float32."""
     head_dim_instance(d)                     # raises outside 1..256
     if dtype == torch.float32:
         return "ffma"
     if dtype in (torch.bfloat16, torch.float16):
-        return "wgmma" if d in WGMMA_HEAD_DIMS else "mma"
+        return "wgmma" if wgmma_instance(d) else "mma"
     raise ValueError(f"flash attention takes {list(_DTYPES)}, got {dtype}")
 
 
-def tma_geometry(t: torch.Tensor) -> tuple[int, ...]:
+def tma_geometry(t: torch.Tensor, rows: int = TMA_BOX[1]) -> tuple[int, ...]:
     """The 4-D TMA tensor map of a (B, H, S, D) 16-bit tensor, as the CUDA
     source reads it: the extents innermost first (D, S, H, B), the byte
-    strides of S, H and B, and the box (columns, rows) of :data:`TMA_BOX`.
+    strides of S, H and B, and the box: :data:`TMA_BOX`'s 64 columns by
+    ``rows`` rows.  D is the true head dimension: the box columns past it
+    arrive as TMA's zero fill.
 
     Raises ``ValueError`` for a view TMA cannot take: a head dimension that
-    is not contiguous or not a whole number of boxes, a base address that is
-    not 16-byte aligned, a stride that is not a multiple of 16 bytes, an
-    empty extent.  The stride of an axis of extent 1 is never followed, so
-    it is given as the dense one.
+    is not contiguous or not a whole number of 16-byte vectors, a base
+    address that is not 16-byte aligned, a stride that is not a multiple of
+    16 bytes, an empty extent.  The stride of an axis of extent 1 is never
+    followed, so it is given as the dense one.
     """
     if t.dim() != 4 or t.element_size() != 2:
         raise ValueError(f"TMA maps take 4-D 16-bit tensors, got {t.dtype} {tuple(t.shape)}")
     if t.data_ptr() % 16:
         raise ValueError("TMA: the base address must be 16-byte aligned")
-    return _tma_layout(tuple(t.shape), t.stride())
+    return _tma_layout(tuple(t.shape), t.stride(), rows)
 
 
 @functools.lru_cache(maxsize=256)
-def _tma_layout(shape: tuple[int, ...], stride: tuple[int, ...]) -> tuple[int, ...]:
+def _tma_layout(shape: tuple[int, ...], stride: tuple[int, ...],
+                rows: int) -> tuple[int, ...]:
     """:func:`tma_geometry` of a 16-bit layout (the part that does not
     depend on the address), computed once per layout."""
     b, h, s, d = shape
-    if stride[3] != 1 or d % TMA_BOX[0]:
-        raise ValueError(f"TMA: the head dimension must be contiguous and a multiple of "
-                         f"{TMA_BOX[0]}, got D = {d}, strides {stride}")
+    if stride[3] != 1 or d % 8:
+        raise ValueError(f"TMA: the head dimension must be contiguous and a multiple of 8 "
+                         f"(16-byte rows), got D = {d}, strides {stride}")
     if min(shape) < 1:
         raise ValueError(f"TMA takes no empty extent, got {shape}")
     strides = []
@@ -165,7 +183,7 @@ def _tma_layout(shape: tuple[int, ...], stride: tuple[int, ...]) -> tuple[int, .
             raise ValueError(f"TMA: byte strides must be multiples of 16 below 2^40, "
                              f"got strides {stride}")
         strides.append(nbytes)
-    return (d, s, h, b, *strides, *TMA_BOX)
+    return (d, s, h, b, *strides, TMA_BOX[0], rows)
 
 
 def wgmma_smem_bytes(d: int) -> int:
@@ -223,7 +241,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out.zero_()
     tma = None
     if route == "wgmma":
-        geom = [n for t in (q, k, v) for n in tma_geometry(t)]
+        key_rows = WGMMA_KEY_TILES[wgmma_instance(d)]
+        geom = [n for t, rows in ((q, TMA_BOX[1]), (k, key_rows), (v, key_rows))
+                for n in tma_geometry(t, rows)]
         tma = (ctypes.c_ulonglong * len(geom))(*geom)
     if scale is None:
         scale = float(d) ** -0.5
@@ -242,6 +262,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 __all__ = ["HEAD_DIMS", "MAX_HEAD_DIM", "ROUTES", "TMA_BOX", "WGMMA_HEAD_DIMS",
-           "flash_attention_cuda", "flash_route", "head_dim_instance", "kernel_takes",
-           "launch_counts", "launch_work", "reset_launch_counts", "tma_geometry",
-           "vector_rows", "visible_pairs", "wgmma_smem_bytes"]
+           "WGMMA_KEY_TILES", "flash_attention_cuda", "flash_route", "head_dim_instance",
+           "kernel_takes", "launch_counts", "launch_work", "reset_launch_counts",
+           "tma_geometry", "vector_rows", "visible_pairs", "wgmma_instance",
+           "wgmma_smem_bytes"]

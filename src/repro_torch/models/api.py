@@ -45,7 +45,8 @@ from repro_torch.optim import TrainState, adamw_init, adamw_update, cosine_warmu
 from repro_torch.runtime.fault_tolerance import split_batch
 
 from . import encdec, hybrid, lm, xlstm
-from .sharding import NamedSharding, distribute, is_dtensor, resolve, use_mesh
+from .sharding import (NamedSharding, block_state_spec, distribute, is_dtensor, resolve,
+                       use_mesh)
 
 
 class Model(NamedTuple):
@@ -432,14 +433,7 @@ def cache_shardings(cfg: ArchConfig, mesh, cache_tree) -> Any:
                     None, "dp" if dp > 1 and b % dp == 0 else None, None,
                     "tp" if tp > 1 and ch % tp == 0 else None)))
             # xlstm block states: (B, ...) — batch over dp, biggest tail dim over tp
-            spec: list = [None] * len(shape)
-            if dp > 1 and shape[0] % dp == 0:
-                spec[0] = "dp"
-            if len(shape) > 1:
-                tail = max(range(1, len(shape)), key=lambda i: (shape[i], -i))
-                if tp > 1 and shape[tail] % tp == 0:
-                    spec[tail] = "tp"
-            return NamedSharding(mesh, resolve(tuple(spec)))
+            return NamedSharding(mesh, resolve(block_state_spec(shape, dp, tp)))
 
     return _map_with_path(assign, cache_tree)
 

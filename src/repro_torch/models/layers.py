@@ -139,6 +139,24 @@ def _split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
     return _whole(x, -1, n).reshape(x.shape[:-1] + (n, d))
 
 
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, D) -> (B, S, H D).  A DTensor is merged on its local piece
+    (laid out over batch, sequence or heads), so that its gradient comes
+    back in the same layout: DTensor cannot view a last axis split inside a
+    head (xlstm-125m's 4 heads on a ``tp`` of 16) back into heads."""
+    if not is_dtensor(x):
+        return x.reshape(x.shape[:2] + (-1,))
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = x.device_mesh
+    places = [pl if isinstance(pl, Shard) and pl.dim < 3 else Replicate()
+              for pl in x.placements]
+    x = sharding.redistribute(x, mesh, places)
+    shape = x.shape[:2] + (x.shape[2] * x.shape[3],)
+    return DTensor.from_local(x.to_local().flatten(2), mesh, places, run_check=False,
+                              shape=shape, stride=sharding._dense_stride(shape))
+
+
 def _qk_normalize(q, k, p, cfg):
     if cfg.qk_norm:
         q = rms_norm(q, p["q_scale"])
@@ -772,6 +790,74 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, *, chunk: int = 128, initial=None,
     return out
 
 
+class _LocalHeads:
+    """``shard_map``'s in and out specs for a recurrent cell run per rank:
+    batch over ``dp`` and heads over ``tp``, each where it divides (heads
+    that do not divide ``tp`` are gathered: the cell carries its state along
+    the sequence, so the sequence cannot split instead)."""
+
+    def __init__(self, mesh, n_heads: int):
+        self.mesh = mesh
+        self.dp = sharding.axis_size(mesh, "dp")
+        self.tp = sharding.axis_size(mesh, "tp")
+        self.heads = "tp" if n_heads % self.tp == 0 else None
+
+    def layout(self, shape, *spec) -> tuple:
+        """The placements of ``spec``, an axis left whole where it does not
+        divide."""
+        return sharding.named_sharding(self.mesh, *(
+            e if e is None or shape[i] % sharding.axis_size(self.mesh, e) == 0 else None
+            for i, e in enumerate(spec))).placements
+
+    def local(self, x, *spec) -> torch.Tensor:
+        """This rank's piece of ``x`` (a plain tensor counts as replicated)."""
+        return sharding.redistribute(x, self.mesh, self.layout(x.shape, *spec)).to_local()
+
+    def to_global(self, x, shape, spec, places=None):
+        """A piece laid out by ``spec`` as a DTensor of ``shape``, moved to
+        ``places`` (default: left as it is)."""
+        from torch.distributed.tensor import DTensor
+
+        out = DTensor.from_local(x, self.mesh, self.layout(shape, *spec), run_check=False)
+        return out if places is None else sharding.redistribute(out, self.mesh, places)
+
+    def cell_out(self, state, shapes, specs) -> tuple:
+        """A carried state in the cache rule's placements
+        (:func:`~repro_torch.models.sharding.block_state_spec`)."""
+        return tuple(self.to_global(t, shp, spec, sharding.named_sharding(
+            self.mesh, *sharding.block_state_spec(shp, self.dp, self.tp)).placements)
+            for t, shp, spec in zip(state, shapes, specs))
+
+
+def mlstm_sharded(q, k, v, i_pre, f_pre, *, chunk: int = 128, initial=None,
+                  return_state: bool = False):
+    """:func:`mlstm_chunked` under a mesh: each rank runs the chunk loop on
+    local tensors, ``shard_map``'s body (as :func:`_attention_sharded` does
+    for attention), with batch over ``dp`` and heads over ``tp`` where they
+    divide it; otherwise (xlstm-125m's 4 heads on a ``tp`` of 16) every
+    rank runs all heads (:class:`_LocalHeads`).  The carried (C, n, m)
+    comes in as it lies and leaves in the cache rule's placements; h leaves
+    in q's placements, a partial sum there given as its total.  A rank sums
+    what one rank would, head by head."""
+    from torch.distributed.tensor import Replicate
+
+    b, _, h, d = q.shape
+    lh = _LocalHeads(q.device_mesh, h)
+    spec = ("dp", None, lh.heads, None)
+    args = [lh.local(t, *spec) for t in (q, k, v)]
+    args += [lh.local(t, *spec[:3]) for t in (i_pre, f_pre)]
+    shapes = ((b, h, d, d), (b, h, d), (b, h))           # C, n, m
+    cell_specs = [("dp", lh.heads, None, None)[:len(shp)] for shp in shapes]
+    if initial is not None:
+        initial = tuple(lh.local(t, *sp) for t, sp in zip(initial, cell_specs))
+    out = mlstm_chunked(*args, chunk=chunk, initial=initial, return_state=return_state)
+    if return_state:
+        out, state = out
+    out = lh.to_global(out, q.shape, spec,
+                       [Replicate() if pl.is_partial() else pl for pl in q.placements])
+    return (out, lh.cell_out(state, shapes, cell_specs)) if return_state else out
+
+
 def mlstm_decode(q, k, v, i_pre, f_pre, state):
     """One mLSTM step.  q, k, v (B,H,D); i_pre, f_pre (B,H); state (C, n, m)
     as :func:`mlstm_chunked` returns it.  Returns (h (B,H,D), state)."""
@@ -829,6 +915,32 @@ def slstm_scan(x_gates: torch.Tensor, r: torch.Tensor, *, initial=None,
     return out
 
 
+def slstm_sharded(x_gates: torch.Tensor, r: torch.Tensor, *, initial=None,
+                  return_state: bool = False):
+    """:func:`slstm_scan` under a mesh, on local tensors, as
+    :func:`mlstm_sharded` runs the mLSTM: batch over ``dp``, heads over
+    ``tp`` where they divide it, else every rank runs all heads.  A time
+    loop of DTensor operations pays DTensor's dispatch on every step; on
+    local tensors it pays plain PyTorch's.  h leaves batch over ``dp`` and
+    heads as they ran; the carried (h, c, n, m) in the cache rule's
+    placements."""
+    b, _, h, _, d = x_gates.shape
+    lh = _LocalHeads(x_gates.device_mesh, h)
+    cell_spec = ("dp", lh.heads, None)
+    if initial is not None:
+        initial = tuple(lh.local(t, *cell_spec) for t in initial)
+    out = slstm_scan(lh.local(x_gates, "dp", None, lh.heads, None, None),
+                     lh.local(r, lh.heads, None, None, None), initial=initial,
+                     return_state=return_state)
+    if return_state:
+        out, state = out
+    out = lh.to_global(out, (b, x_gates.shape[1], h, d), ("dp", None, lh.heads, None))
+    if not return_state:
+        return out
+    return out, lh.cell_out(state, [(b, h, d)] * 4, [cell_spec] * 4)
+
+
 __all__ = ["MoeRoutes", "attention_decode", "attention_train", "dot", "mamba2_decode",
-           "mamba2_dims", "mamba2_scan", "mlp", "mlstm_chunked", "mlstm_decode", "moe",
-           "moe_capacity", "moe_routes", "rms_norm", "rope", "silu", "slstm_scan"]
+           "mamba2_dims", "mamba2_scan", "merge_heads", "mlp", "mlstm_chunked",
+           "mlstm_decode", "mlstm_sharded", "moe", "moe_capacity", "moe_routes", "rms_norm",
+           "rope", "silu", "slstm_scan", "slstm_sharded"]

@@ -195,6 +195,20 @@ def divisible(dim: int, mesh, axis: str) -> bool:
     return dim % int(math.prod(mesh_size(mesh, n) for n in _names(p))) == 0
 
 
+def block_state_spec(shape, dp: int, tp: int) -> tuple:
+    """The cache rule of a recurrent block's state (B, ...) as a logical
+    spec: batch over ``dp``, the biggest tail dimension (the first of equals)
+    over ``tp``, each where it divides."""
+    spec: list = [None] * len(shape)
+    if dp > 1 and shape[0] % dp == 0:
+        spec[0] = "dp"
+    if len(shape) > 1:
+        tail = max(range(1, len(shape)), key=lambda i: (shape[i], -i))
+        if tp > 1 and shape[tail] % tp == 0:
+            spec[tail] = "tp"
+    return tuple(spec)
+
+
 def serving(fn):
     """Decorator of the models' prefill and decode: ``torch.inference_mode``
     on one card, ``torch.no_grad`` under a mesh (DTensors do not run on

@@ -119,11 +119,12 @@ def _mlstm_block(x, p, cfg, *, state=None, return_state: bool = False):
     if_pre = L.dot(x_in, p["w_if"]).to(torch.float32) + p["b_if"]
     i_pre, f_pre = if_pre.chunk(2, dim=-1)                 # (B,S,H)
 
-    out = L.mlstm_chunked(q, k, v, i_pre, f_pre, chunk=mlstm_chunk(s), initial=cell_in,
-                          return_state=return_state)
+    mlstm = L.mlstm_sharded if L.is_dtensor(q) else L.mlstm_chunked
+    out = mlstm(q, k, v, i_pre, f_pre, chunk=mlstm_chunk(s), initial=cell_in,
+                return_state=return_state)
     if return_state:
         out, cell = out
-    hid = L.rms_norm(out.reshape(b, s, d_in).to(x.dtype), p["gn"])
+    hid = L.rms_norm(L.merge_heads(out).to(x.dtype), p["gn"])
     y = x + L.dot(hid * L.silu(gate), p["w_down"])
     return (y, (cell, conv_state_out)) if return_state else y
 
@@ -133,11 +134,12 @@ def _slstm_block(x, p, cfg, *, state=None, return_state: bool = False):
     h = cfg.n_heads
     gates = L._whole(L.dot(L.rms_norm(x, p["ln"]), p["w_gates"]), -1, 4).reshape(
         b, s, 4, h, d // h)
-    out = L.slstm_scan(gates.transpose(2, 3), p["r"], initial=state,
-                       return_state=return_state)          # gates (B,S,H,4,D)
+    slstm = L.slstm_sharded if L.is_dtensor(gates) else L.slstm_scan
+    out = slstm(gates.transpose(2, 3), p["r"], initial=state,
+                return_state=return_state)                 # gates (B,S,H,4,D)
     if return_state:
         out, new_state = out
-    hid = L.rms_norm(out.reshape(b, s, d).to(x.dtype), p["gn"])
+    hid = L.rms_norm(L.merge_heads(out).to(x.dtype), p["gn"])
     y = x + L.dot(hid, p["w_o"])
     # post GLU MLP (proj factor 4/3)
     a, g = L.dot(L.rms_norm(y, p["ln2"]), p["w1"]).chunk(2, dim=-1)

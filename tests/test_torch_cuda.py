@@ -266,10 +266,12 @@ def test_exact_coded_round_on_the_card_equals_the_cpu(cuda_device):
 # flash attention (B6) and the LM serving path
 # ---------------------------------------------------------------------------
 
-# (B, Hq, Hkv, Sq, Sk, D, causal, window); in 16 bits D = 64 and 128 take the
-# wgmma route, every other D the mma.sync route; float32 the FFMA route.  D =
-# 96, 112, 192 are the repo's configs' head widths, 40 and 112 run the next
-# instantiation up (64, 128), 20 is read element by element
+# (B, Hq, Hkv, Sq, Sk, D, causal, window); in 16 bits D = 64 ... 192 in
+# multiples of 8 take the wgmma route (96, 112 and 72 on its 128-wide
+# instantiation, 136 and 192 on its 192-wide one with 64-key tiles), every
+# other D the mma.sync route; float32 the FFMA route.  D = 96, 112, 192 are
+# the repo's configs' head widths, 40 runs the next mma instantiation up
+# (64), 20 is read element by element
 FLASH_CASES = [(2, 4, 2, 100, 100, 64, True, None),
                (1, 8, 1, 200, 300, 128, False, None),
                (2, 4, 4, 257, 257, 32, True, 50),
@@ -283,7 +285,20 @@ FLASH_CASES = [(2, 4, 2, 100, 100, 64, True, None),
                (2, 2, 1, 100, 150, 192, False, None),
                (1, 4, 4, 70, 70, 40, True, None),
                (1, 2, 1, 50, 50, 20, True, None),
-               (1, 2, 2, 90, 90, 256, True, None)]
+               (1, 2, 2, 90, 90, 256, True, None),
+               # the wide heads on the wgmma route: ragged Sq = Sk, Sq > Sk (rows
+               # with no key exactly 0), a window, a GQA group of 8, decode-aligned
+               (2, 4, 2, 300, 300, 112, True, None),
+               (2, 4, 2, 300, 300, 192, True, None),
+               (1, 4, 2, 300, 100, 112, True, None),
+               (1, 4, 2, 300, 100, 192, True, None),
+               (2, 4, 2, 500, 500, 192, True, 100),
+               (1, 16, 2, 256, 256, 112, True, None),
+               (1, 16, 2, 256, 256, 192, True, None),
+               (1, 8, 4, 16, 2048, 112, True, None),
+               (1, 8, 4, 16, 2048, 192, True, None),
+               (1, 4, 2, 150, 150, 72, True, None),
+               (1, 4, 2, 150, 150, 136, False, None)]
 # the 16-bit types' rounding unit, which scales their bound
 FLASH_EPS = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
 
@@ -312,6 +327,16 @@ def test_flash_attention_kernel_matches_plain_version(cuda_device, case, dtype):
     assert bool((diff <= bound).all()), float(diff.max())
     if causal and sq > sk:                # rows that see no key: the l == 0 guard
         assert not bool(got[:, :, :sq - sk].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 72, 96, 112, 128, 136, 192])
+def test_wgmma_instances_fit_the_devices_shared_memory(cuda_device, d):
+    """Each wgmma instantiation's dynamic shared memory is at most what the
+    device lets a block opt in to (227 KB on the H100)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    optin = torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
+    assert 0 < fk.wgmma_smem_bytes(d) <= optin
 
 
 @pytest.mark.cuda

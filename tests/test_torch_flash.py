@@ -135,10 +135,14 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     (torch.bfloat16, 64, "wgmma"), (torch.float16, 64, "wgmma"),
     (torch.bfloat16, 32, "mma"), (torch.float16, 16, "mma"),
     (torch.float32, 128, "ffma"), (torch.float32, 16, "ffma"),
-    (torch.bfloat16, 96, "mma"), (torch.float32, 192, "ffma"),
-    (torch.float16, 112, "mma"), (torch.bfloat16, 192, "mma"), (torch.bfloat16, 256, "mma"),
+    (torch.bfloat16, 96, "wgmma"), (torch.float32, 192, "ffma"),
+    (torch.float16, 112, "wgmma"), (torch.bfloat16, 192, "wgmma"), (torch.bfloat16, 256, "mma"),
     (torch.bfloat16, 40, "mma"), (torch.float32, 40, "ffma"), (torch.float16, 1, "mma"),
     (torch.float32, 256, "ffma"),
+    # wgmma takes 64 ... 192 in whole 16-byte rows; the rest stays on mma.sync
+    (torch.float16, 72, "wgmma"), (torch.bfloat16, 136, "wgmma"),
+    (torch.float16, 40, "mma"), (torch.bfloat16, 20, "mma"), (torch.bfloat16, 100, "mma"),
+    (torch.bfloat16, 200, "mma"), (torch.float16, 256, "mma"), (torch.float32, 96, "ffma"),
 ], ids=str)
 def test_the_route_follows_dtype_and_head_dimension_alone(dtype, d, want):
     from repro_torch.kernels.flash_attention.kernel import flash_route
@@ -176,9 +180,11 @@ def test_rows_of_partial_vectors_are_read_element_by_element(shape, dtype, takes
         assert not kernel_takes(torch.zeros(shape[:3] + (2 * shape[3],), dtype=dtype)[..., ::2])
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 112, 128, 192])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 def test_tma_geometry_reads_the_layers_transposed_views(d, dtype):
+    """The true extent d innermost (the box's columns past it arrive as
+    zeros), whatever the padded instantiation."""
     b, s, h = 3, 200, 8
     x = torch.zeros((b, s, h, d), dtype=dtype)          # (B, S, H, D) projection
     view = x.transpose(1, 2)                             # (B, H, S, D), no copy
@@ -186,6 +192,25 @@ def test_tma_geometry_reads_the_layers_transposed_views(d, dtype):
     assert fa.tma_geometry(view) == (d, s, h, b, h * d * es, d * es, s * h * d * es, 64, 128)
     dense = view.contiguous()
     assert fa.tma_geometry(dense) == (d, s, h, b, d * es, s * d * es, h * s * d * es, 64, 128)
+
+
+@pytest.mark.parametrize("d,instance,keys", [(64, 64, 128), (72, 128, 128), (96, 128, 128),
+                                             (112, 128, 128), (128, 128, 128),
+                                             (136, 192, 64), (192, 192, 64)])
+def test_a_wide_head_runs_the_padded_wgmma_instantiation(d, instance, keys):
+    """D = 96 and 112 run the 128-wide kernel, D = 192 the 192-wide one with
+    64-key K / V tiles, whose boxes the key maps are given."""
+    from repro_torch.kernels.flash_attention.kernel import WGMMA_HEAD_DIMS, WGMMA_KEY_TILES
+    assert fa.wgmma_instance(d) == instance and instance in WGMMA_HEAD_DIMS
+    assert WGMMA_KEY_TILES[instance] == keys
+    k = torch.zeros((2, 300, 4, d), dtype=torch.bfloat16).transpose(1, 2)
+    assert fa.tma_geometry(k, keys) == (d, 300, 4, 2, 4 * d * 2, d * 2, 300 * 4 * d * 2,
+                                        64, keys)
+
+
+@pytest.mark.parametrize("d", [8, 20, 40, 56, 100, 200, 256])
+def test_the_wgmma_route_takes_no_other_width(d):
+    assert fa.wgmma_instance(d) == 0
 
 
 def test_tma_geometry_gives_extent_one_axes_their_dense_strides():
@@ -203,10 +228,10 @@ def _misaligned(d):
     (lambda: torch.zeros((2, 3, 64, 40), dtype=torch.bfloat16).transpose(2, 3), "contiguous"),
     (lambda: _misaligned(64), "aligned"),
     (lambda: torch.zeros((2, 3, 40, 68), dtype=torch.bfloat16)[..., :64], "multiples of 16"),
-    (lambda: torch.zeros((2, 3, 40, 96), dtype=torch.bfloat16), "multiple of 64"),
+    (lambda: torch.zeros((2, 3, 40, 20), dtype=torch.bfloat16), "multiple of 8"),
     (lambda: torch.zeros((2, 3, 0, 64), dtype=torch.bfloat16), "empty extent"),
     (lambda: torch.zeros((2, 3, 40, 64), dtype=torch.float32), "16-bit"),
-], ids=["head-dim-strided", "misaligned-base", "odd-row-stride", "d96", "no-keys", "float32"])
+], ids=["head-dim-strided", "misaligned-base", "odd-row-stride", "d20", "no-keys", "float32"])
 def test_tma_geometry_refuses_views_tma_cannot_take(make, what):
     t = make()
     with pytest.raises(ValueError, match=what):

@@ -64,6 +64,15 @@ def _nested(flat: dict) -> dict:
     return tree
 
 
+def _leaves(tree, prefix: str = ""):
+    """(dotted path, leaf) of a cache's nested tuples, in order."""
+    if isinstance(tree, (tuple, list)):
+        for i, t in enumerate(tree):
+            yield from _leaves(t, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
 def _worker(rank: int, coord: str, inp: str, out: str) -> None:
     import torch
 
@@ -72,6 +81,7 @@ def _worker(rank: int, coord: str, inp: str, out: str) -> None:
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.launch import mesh as lmesh
     from repro_torch.models import api, layers, sharding
+    from repro_torch.models import xlstm as xlstm_model
     from repro_torch.models.sharding import full, use_mesh
     from repro_torch.optim import adamw_init
     from repro_torch.runtime.elastic import reshard_state
@@ -97,8 +107,17 @@ def _worker(rank: int, coord: str, inp: str, out: str) -> None:
 
         setattr(layers, name, run)
 
-    for name in ("_sharded_lse_decode", "_moe_ep", "_attention_sharded"):
+    for name in ("_sharded_lse_decode", "_moe_ep", "_attention_sharded", "mlstm_sharded",
+                 "slstm_sharded"):
         counted(name)
+    local_heads = []                    # the heads of each local mlstm_chunked call
+    plain_mlstm = layers.mlstm_chunked
+
+    def mlstm_chunked(q, *args, **kwargs):
+        local_heads.append(q.shape[2])
+        return plain_mlstm(q, *args, **kwargs)
+
+    layers.mlstm_chunked = mlstm_chunked
 
     def params_of(prefix, cfg):
         flat = {k[len(prefix):]: v for k, v in data.items() if k.startswith(prefix)}
@@ -181,6 +200,45 @@ def _worker(rank: int, coord: str, inp: str, out: str) -> None:
         for name in calls:
             res[f"{key}.calls.{name}"] = np.int64(calls[name] - before.get(name, 0))
 
+    def xlstm(key, mesh):
+        """The xlstm SMOKE prefill + STEPS decode steps, unsharded and over
+        ``mesh``; every state leaf, and the carried cells' placements held
+        to the cache rule."""
+        cfg = get_smoke_config("xlstm_125m")
+        tokens = torch.from_numpy(data["serve.tokens"])
+        nxt = torch.from_numpy(data["serve.next"])
+        params = params_of("xlstm.p.", cfg)
+        before = dict(calls)
+        prefill = api.make_prefill_step(cfg, max_len=MAX_LEN)
+        dec = api.make_serve_step(cfg)
+        for tag, m in (("one", None), ("mesh", mesh)):
+            p = params if m is None else api.distribute_tree(
+                params, api.param_shardings(cfg, m, params))
+            del local_heads[:]
+            with use_mesh(m):
+                logits, cache = prefill(p, {"tokens": tokens})
+                res[f"{key}.{tag}.prefill"] = full(logits).numpy().copy()
+                for name, t in _leaves(cache["blocks"]):
+                    res[f"{key}.{tag}.state.{name}"] = full(t).numpy().copy()
+                if m is not None:
+                    rule = dict(_leaves(api.cache_shardings(cfg, m, cache)["blocks"]))
+                    kinds = xlstm_model.block_types(cfg)
+                    for name, t in _leaves(cache["blocks"]):
+                        block, part = name.split(".")[:2]
+                        if kinds[int(block)] == "mlstm" and part == "1":   # the conv window
+                            continue
+                        if tuple(t.placements) != rule[name].placements:
+                            raise AssertionError(f"{name}: placements {t.placements} "
+                                                 f"!= {rule[name].placements}")
+                    res[f"{key}.local_heads"] = np.int64(max(local_heads))
+                outs = []
+                for i in range(STEPS):
+                    lg, cache = dec(p, cache, {"next_token": nxt[:, i]})
+                    outs.append(full(lg).numpy())
+                res[f"{key}.{tag}.decode"] = np.stack(outs)
+        for name in calls:
+            res[f"{key}.calls.{name}"] = np.int64(calls[name] - before.get(name, 0))
+
     def pp():
         w, b, x = (torch.from_numpy(data[f"pp.{k}"]) for k in ("w", "b", "x"))
         fn = lambda p, h: torch.tanh(h @ p["w"] + p["b"])
@@ -224,6 +282,8 @@ def _worker(rank: int, coord: str, inp: str, out: str) -> None:
             f"heads_{impl}", dataclasses.replace(qwen, n_heads=16), "h16.p.", mesh14, impl))
     check("olmoe", lambda: serve("olmoe", dataclasses.replace(
         get_smoke_config("olmoe_1b_7b"), moe_impl="ep"), "olmoe.p.", mesh14, "ref"))
+    check("xlstm_heads", lambda: xlstm("xlstm_heads", mesh22))       # 2 heads over tp 2
+    check("xlstm_gathered", lambda: xlstm("xlstm_gathered", mesh14))  # 2 heads, tp 4
     check("pp", pp)
     check("reshard", reshard)
     if rank == 0:
@@ -309,12 +369,12 @@ def _inputs(tmp) -> tuple[dict, dict]:
     nxt = rng.integers(0, 512, (BATCH, STEPS), dtype=np.int32)
     data["serve.tokens"], data["serve.next"] = tokens, nxt
     for tag, name, over in (("yi", "yi_9b", {}), ("h16", "qwen3_0_6b", {"n_heads": 16}),
-                            ("olmoe", "olmoe_1b_7b", {})):
+                            ("olmoe", "olmoe_1b_7b", {}), ("xlstm", "xlstm_125m", {})):
         c = jbase.get_smoke_config(name, **over)
         jp = japi.get_model(c).init_params(jax.random.PRNGKey(0), c)
         data.update(_flat_np(jp, f"{tag}.p."))
-        if tag == "yi":       # JAX's decode: the local path the sharded one must equal
-            ref["yi"] = (c, jp, tokens, nxt)
+        if tag in ("yi", "xlstm"):   # JAX's serving: what the sharded path must equal
+            ref[tag] = (c, jp, tokens, nxt)
     # the pipeline (tests/distributed/_pp_forward.py)
     ks = jax.random.split(jax.random.PRNGKey(0), 3)
     pw = jax.random.normal(ks[0], (4, 16, 16)) * 0.3
@@ -336,6 +396,10 @@ def _jax_references(ref) -> dict:
     want["moe"] = np.asarray(JL.moe(x, p, mcfg))
     c, jp, tokens, nxt = ref["yi"]
     want["yi.serve"] = _jax_serve(c, jp, jnp.asarray(tokens), jnp.asarray(nxt))
+    c, jp, tokens, nxt = ref["xlstm"]
+    want["xlstm.serve"] = _jax_serve(c, jp, jnp.asarray(tokens), jnp.asarray(nxt))
+    _, cache = japi.make_prefill_step(c, max_len=MAX_LEN)(jp, {"tokens": jnp.asarray(tokens)})
+    want["xlstm.state"] = {n: np.asarray(t) for n, t in _leaves(cache["blocks"])}
     params, px = ref["pp"]
     want["pp"] = np.asarray(jpp.reference_forward(
         lambda q, h: jnp.tanh(h @ q["w"] + q["b"]), params, px))
@@ -443,6 +507,27 @@ def test_prefill_branches_match_one_rank(group, branch, impl):
     assert int(res[f"{key}.calls._attention_sharded"]) == 2     # each layer's prefill
     for part in ("prefill", "k", "v", "decode", "kd"):
         _close(res[f"{key}.mesh.{part}"], res[f"{key}.one.{part}"])
+
+
+@pytest.mark.parametrize("branch,heads", [("heads", 1), ("gathered", 2)])
+def test_xlstm_prefill_branches_match_one_rank_and_jax(group, branch, heads):
+    """xlstm's SMOKE prefill (2 heads) and 4 decode steps with the mLSTM and
+    sLSTM on local tensors: heads split over tp = 2, or gathered on tp = 4
+    (every rank runs both heads); the carried states leave in the cache
+    rule's placements (checked by the worker)."""
+    key = f"xlstm_{branch}"
+    res, want = _ok(group, key)
+    # two mLSTM blocks and one sLSTM block, each prefill and decode step
+    assert int(res[f"{key}.calls.mlstm_sharded"]) == 2 * (1 + STEPS)
+    assert int(res[f"{key}.calls.slstm_sharded"]) == 1 + STEPS
+    assert int(res[f"{key}.local_heads"]) == heads
+    jprefill, jdecode = want["xlstm.serve"]
+    for part, ref in (("prefill", jprefill), ("decode", jdecode)):
+        _close(res[f"{key}.mesh.{part}"], res[f"{key}.one.{part}"])
+        _close(res[f"{key}.mesh.{part}"], ref)
+    for name, ref in want["xlstm.state"].items():
+        _close(res[f"{key}.mesh.state.{name}"], res[f"{key}.one.state.{name}"])
+        _close(res[f"{key}.mesh.state.{name}"], ref)
 
 
 def test_pipeline_forward_matches_reference_and_jax(group):

@@ -1,5 +1,6 @@
 """Time the Lagrange encode (B4) and flash attention (B6) wrappers of one
-checkout of the port at their main shapes, beside the PyTorch call that
+checkout of the port at their main shapes (B6 also at the wide heads of
+zamba2-7b, phi-3-vision and nemotron-4), beside the PyTorch call that
 computes the same function on the same inputs; the Poisson-binomial tails
 through ``success_tails`` as the sweep engine calls them (B1: probabilities
 (2, 256, 20 000, 15) with thresholds (1, 256, 1, 15); B2: 40 000 x 15 with a
@@ -12,7 +13,7 @@ view x~^T, as the round passes it), and one whole exact round of each degree (``
 scenario 1, ``coded_linear_gradient_modp`` at Fig. 3 scenario 3, the shapes
 of ``chip_smoke.py`` phase 7).  Needs one CUDA card.
 
-    python3 tools/kernel_ab.py --src <checkout>/src --label <name>
+    python3 tools/kernel_ab.py --src <checkout>/src --label <name> [--only flash]
 
 ``--src`` goes first on ``sys.path``, so the ``repro_torch`` of any checkout
 is timed by the same code: to compare a commit with its parent, unpack the
@@ -128,26 +129,53 @@ def encode_row(torch, le) -> dict:
             "library_times": times(torch, lambda: torch.matmul(g, x))}
 
 
-def flash_row(torch, fa) -> dict:
+# B6's shapes (what, B, Hq, Hkv, Sq, Sk, D, causal): qwen3-0.6b's prefill,
+# the wide heads of zamba2-7b, phi-3-vision and nemotron-4 (the padded
+# wgmma instantiations), whisper-tiny's cross-attention and a decode-aligned
+# Sq = 16 (short kernels, where the wrapper's host time shows)
+FLASH_SHAPES = (("qwen3-0.6b", 4, 16, 8, 2048, 2048, 128, True),
+                ("zamba2-7b d112", 4, 32, 32, 2048, 2048, 112, True),
+                ("phi-3-vision d96", 4, 32, 32, 2048, 2048, 96, True),
+                ("nemotron-4 d192", 1, 96, 8, 1024, 1024, 192, True),
+                ("whisper-tiny cross", 8, 6, 6, 432, 1500, 64, False),
+                ("decode-aligned", 4, 16, 8, 16, 2048, 128, True))
+
+
+def flash_rows(torch, fa) -> list[dict]:
+    """B6 in bf16 at :data:`FLASH_SHAPES` beside SDPA (where its top-left
+    causal alignment computes the same function: Sq = Sk or non-causal)."""
     gen = torch.Generator(device="cuda").manual_seed(9)
-    b, hq, hkv, s, d = 4, 16, 8, 2048, 128
-    # (B, H, S, D) views of (B, S, H, D) tensors, as the model's layer passes them
-    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
-               .to(torch.bfloat16).transpose(1, 2) for h in (hq, hkv, hkv))
-    got = fa.flash_attention_cuda(q, k, v, causal=True)
-    want = fa.flash_attention_ref(q, k, v, causal=True, block_q=1024)
-    bound = 2.0 ** -8 * (v.float().abs().amax() + want.float().abs())
-    if bool(((got.float() - want.float()).abs() > bound).any()):
-        raise AssertionError("flash_attention_cuda disagrees with its plain version")
-    del want, bound
-    pairs = s * (s + 1) // 2
-    moved = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return {"name": "flash_attention_cuda", "shape": [[b, hq, s, d], [b, hkv, s, d]],
-            "bound_ms": max(moved / HBM_BYTES_PER_S, 4 * d * pairs * b * hq / BF16_FLOP_PER_S) * 1e3,
-            "kernel": times(torch, lambda: fa.flash_attention_cuda(q, k, v, causal=True)),
-            "library": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
-            "library_times": times(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))}
+    rows = []
+    for what, b, hq, hkv, sq, sk, d, causal in FLASH_SHAPES:
+        # (B, H, S, D) views of (B, S, H, D) tensors, as the model's layer passes them
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16).transpose(1, 2)
+                   for s, h in ((sq, hq), (sk, hkv), (sk, hkv)))
+        got = fa.flash_attention_cuda(q, k, v, causal=causal)
+        want = fa.flash_attention_ref(q, k, v, causal=causal, block_q=1024)
+        bound = 2.0 ** -8 * (v.float().abs().amax() + want.float().abs())
+        if bool(((got.float() - want.float()).abs() > bound).any()):
+            raise AssertionError(f"flash_attention_cuda {what} disagrees with its plain version")
+        del want, bound
+        pairs = fa.kernel.visible_pairs(sq, sk, causal, None)
+        moved = 2 * (2 * b * hq * sq * d + 2 * b * hkv * sk * d)
+        route = fa.flash_route(torch.bfloat16, d)
+        library = None
+        if sq == sk or not causal:
+            library = times(torch, lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True))
+        rows.append({
+            "name": f"flash_attention_cuda {what}", "shape": [[b, hq, sq, d], [b, hkv, sk, d]],
+            "route": route,
+            "instantiation": (getattr(fa, "wgmma_instance", lambda _: d)(d)
+                              if route == "wgmma" else fa.head_dim_instance(d)),
+            "bound_ms": max(moved / HBM_BYTES_PER_S,
+                            4 * d * pairs * b * hq / BF16_FLOP_PER_S) * 1e3,
+            "kernel": times(torch, lambda: fa.flash_attention_cuda(q, k, v, causal=causal)),
+            "library": f"scaled_dot_product_attention(is_causal={causal}, enable_gqa=True)",
+            "library_times": library})
+        del q, k, v, got
+    return rows
 
 
 def tails_rows(torch, pb) -> list[dict]:
@@ -269,6 +297,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True, help="a checkout's src directory")
     ap.add_argument("--label", required=True)
+    ap.add_argument("--only", choices=("all", "flash"), default="all",
+                    help="time every kernel, or B6 alone")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -287,8 +317,11 @@ def main() -> int:
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    rows = [*tails_rows(torch, pb), *gradient_rows(torch, cg), encode_row(torch, le),
-            flash_row(torch, fa), *gf_rows(torch, gf, co, lg)]
+    if args.only == "flash":
+        rows = flash_rows(torch, fa)
+    else:
+        rows = [*tails_rows(torch, pb), *gradient_rows(torch, cg), encode_row(torch, le),
+                *flash_rows(torch, fa), *gf_rows(torch, gf, co, lg)]
     print(json.dumps({"label": args.label, "package": repro_torch.__file__,
                       "gpu": smi.stdout.strip().splitlines()[0], "torch": torch.__version__,
                       "rows": rows}), flush=True)
