@@ -2296,9 +2296,9 @@ def obs_trace(tmp: Path) -> dict:
     walls = {}
     try:
         with obs.profile_trace("phase13"):
-            with obs.annotate("phase13.fig3"):
+            with torch.profiler.record_function("phase13.fig3"):
                 _, walls["fig3"] = timed(lambda: sweeps.run_group(group))
-            with obs.annotate("phase13.exact_deg2"):
+            with torch.profiler.record_function("phase13.exact_deg2"):
                 _, walls["exact_deg2"] = timed(lambda: [co.coded_linear_gradient_modp(
                     coded, w, masks[m]) for m in rounds])
     finally:

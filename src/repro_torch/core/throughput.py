@@ -165,7 +165,9 @@ def _static_loads_batch(draws, rounds, start, stop, pis, kstar, ell_g, ell_b,
     for t in range(STATIC_MAX_TRIES):
         redo = [unfinished(x) for x in loads]
         # one host read a try: every strategy's flag in one copy
-        if not bool(torch.stack([r.any() for r in redo]).any()):
+        with _phase("static_wait", dev):
+            more = bool(torch.stack([r.any() for r in redo]).any())
+        if not more:
             break
         u = draws.static(b, rounds, start, stop, n, t).to(dev)
         for j, pi in enumerate(pis):
@@ -206,22 +208,23 @@ def _rollout_block_stats(states_b, draws, rounds, start, p_alloc_b, pi_g, load,
                     loads_by[s] = (loads_all[j], always)
             prefix = i_star
 
-    resampled = [s for s in ("static", "static_equal") if s in strategies]
-    if resampled:
-        pis = [pi_g if s == "static" else torch.full_like(pi_g, 0.5)
-               for s in resampled]
-        outs = _static_loads_batch(draws, rounds, start, stop, pis, kstar,
-                                   ell_g, ell_b, mask)
-        loads_by.update(zip(resampled, outs))
-    if "static_single" in strategies:
-        u = draws.single(b, rounds, start, stop, n).to(dev)
-        single = torch.where(u < 0.5, ell_g, ell_b).to(torch.int32)
-        if mask is not None:
-            single = torch.where(mask[:, None, :], single, 0)
-        loads_by["static_single"] = (single, always)
+    with _phase("static_loads", dev):
+        resampled = [s for s in ("static", "static_equal") if s in strategies]
+        if resampled:
+            pis = [pi_g if s == "static" else torch.full_like(pi_g, 0.5)
+                   for s in resampled]
+            outs = _static_loads_batch(draws, rounds, start, stop, pis, kstar,
+                                       ell_g, ell_b, mask)
+            loads_by.update(zip(resampled, outs))
+        if "static_single" in strategies:
+            u = draws.single(b, rounds, start, stop, n).to(dev)
+            single = torch.where(u < 0.5, ell_g, ell_b).to(torch.int32)
+            if mask is not None:
+                single = torch.where(mask[:, None, :], single, 0)
+            loads_by["static_single"] = (single, always)
 
-    loads_mat = torch.stack([loads_by[s][0] for s in strategies])
-    feasible = torch.stack([loads_by[s][1] for s in strategies])
+        loads_mat = torch.stack([loads_by[s][0] for s in strategies])
+        feasible = torch.stack([loads_by[s][1] for s in strategies])
     return loads_mat, feasible, prefix
 
 
@@ -372,12 +375,13 @@ def _simulate_batched(draws, load, p_gg, p_bb, mu_g, mu_b, deadline, rounds,
             succ_cum = succ_cum + outs[-1][0].sum(dim=1, dtype=torch.int32)
             err_cum = err_cum + est_err[:, start:stop].sum(dim=1)
             _emit_pool(rows, bi, stop, *_taps.to_host(succ_cum, err_cum), fixed_bound=False)
-    if len(outs) == 1:
-        succ, tel = outs[0]
-    else:
-        succ = torch.cat([o[0] for o in outs], dim=1)
-        tel = None if not telemetry else tuple(
-            torch.cat([o[1][i] for o in outs], dim=1) for i in range(4))
+    with _phase("fetch", dev):
+        if len(outs) == 1:
+            succ, tel = outs[0]
+        else:
+            succ = torch.cat([o[0] for o in outs], dim=1)
+            tel = None if not telemetry else tuple(
+                torch.cat([o[1][i] for o in outs], dim=1) for i in range(4))
     if tap and chunk == rounds:
         # one pass: the stride aggregates are prefix sums of the streams
         bounds, (succ_h, err_h) = _taps.prefix_sums_at(tap_stride, succ, est_err)
@@ -430,8 +434,9 @@ def sweep(draws, lp: LoadParams, p_gg, p_bb, mu_g, mu_b, deadline, rounds: int,
     ``deadline`` scalars or (B,).  Returns (B, rounds, S) bool successes.
     """
     dev = resolve_device(device)
-    p_gg, p_bb, mu_g, mu_b, deadline = _batch_inputs(p_gg, p_bb, mu_g, mu_b,
-                                                     deadline, dev)
+    with _phase("lift", dev):
+        p_gg, p_bb, mu_g, mu_b, deadline = _batch_inputs(p_gg, p_bb, mu_g, mu_b,
+                                                         deadline, dev)
     return _simulate_batched(as_draws(draws, dev), lp, p_gg, p_bb, mu_g, mu_b,
                              deadline, rounds, strategies, round_chunk)
 
@@ -451,9 +456,10 @@ def sweep_pool(draws, pool: PoolLoad, p_gg, p_bb, mu_g, mu_b, deadline,
     end) of an unchunked run.  The successes are the same either way.
     """
     dev = resolve_device(device)
-    p_gg, p_bb, mu_g, mu_b, deadline = _batch_inputs(p_gg, p_bb, mu_g, mu_b,
-                                                     deadline, dev)
-    pool = _batch_pool(pool, p_gg.shape[0], dev)
+    with _phase("lift", dev):
+        p_gg, p_bb, mu_g, mu_b, deadline = _batch_inputs(p_gg, p_bb, mu_g, mu_b,
+                                                         deadline, dev)
+        pool = _batch_pool(pool, p_gg.shape[0], dev)
     return _simulate_batched(as_draws(draws, dev), pool, p_gg, p_bb, mu_g,
                              mu_b, deadline, rounds, strategies, round_chunk,
                              telemetry, tap, tap_stride)
@@ -489,9 +495,11 @@ def simulate_strategies_pool(draws, pool: PoolLoad, p_gg, p_bb, mu_g, mu_b,
     -1), as in the JAX package.
     """
     dev = resolve_device(device)
-    p_gg, p_bb, mu_g, mu_b, deadline = _batch_inputs(
-        _f32(p_gg, dev)[None], _f32(p_bb, dev)[None], mu_g, mu_b, deadline, dev)
-    out = _simulate_batched(as_draws(draws, dev), _batch_pool(pool, 1, dev), p_gg, p_bb,
+    with _phase("lift", dev):
+        p_gg, p_bb, mu_g, mu_b, deadline = _batch_inputs(
+            _f32(p_gg, dev)[None], _f32(p_bb, dev)[None], mu_g, mu_b, deadline, dev)
+        pool = _batch_pool(pool, 1, dev)
+    out = _simulate_batched(as_draws(draws, dev), pool, p_gg, p_bb,
                             mu_g, mu_b, deadline, rounds, strategies, round_chunk,
                             telemetry, tap, tap_stride,
                             tap_rows=[-1 if tap_row is None else tap_row])

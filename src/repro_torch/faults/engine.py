@@ -94,12 +94,13 @@ def _emit_faults(outcomes, preempted, lost, tap_stride, rows) -> None:
 def _lifted(pool, p_gg, p_bb, mu_g, mu_b, deadline, k1star, dev):
     """The (B,)-row tensors :func:`_faults_batched` takes, from (B, n)
     chains and scalar or (B,) parameters."""
-    p_gg = torch.as_tensor(p_gg, dtype=torch.float32, device=dev)
-    p_bb = torch.as_tensor(p_bb, dtype=torch.float32, device=dev)
-    b = p_gg.shape[0]
-    f32 = lambda x: throughput._rows(x, b, torch.float32, dev)
-    return (throughput._batch_pool(pool, b, dev), p_gg, p_bb, f32(mu_g), f32(mu_b),
-            f32(deadline), throughput._rows(k1star, b, torch.int32, dev))
+    with _phase("lift", dev):
+        p_gg = torch.as_tensor(p_gg, dtype=torch.float32, device=dev)
+        p_bb = torch.as_tensor(p_bb, dtype=torch.float32, device=dev)
+        b = p_gg.shape[0]
+        f32 = lambda x: throughput._rows(x, b, torch.float32, dev)
+        return (throughput._batch_pool(pool, b, dev), p_gg, p_bb, f32(mu_g), f32(mu_b),
+                f32(deadline), throughput._rows(k1star, b, torch.int32, dev))
 
 
 def _faults_batched(draws, pool: PoolLoad, p_gg, p_bb, mu_g, mu_b, deadline, k1star,
@@ -116,8 +117,9 @@ def _faults_batched(draws, pool: PoolLoad, p_gg, p_bb, mu_g, mu_b, deadline, k1s
     loads, feasible = throughput._rollout_block(
         states, draws, rounds, 0, p_alloc, pi_g, pool, strategies
     )                                          # (S, B, M, n), (S, B, M)
-    trace = base_trace(b, rounds, n, r, packets, deadline, device=states.device)
-    trace = apply_channel(draws, channel, trace)
+    with _phase("channel", states.device):
+        trace = base_trace(b, rounds, n, r, packets, deadline, device=states.device)
+        trace = apply_channel(draws, channel, trace)
     col = lambda x: x[:, None, None]           # (B,) against (B, M, n)
     mg, mb, dl = col(mu_g), col(mu_b), col(deadline)
     with _phase("decode", states.device):

@@ -26,8 +26,9 @@ outputs stay bit-identical.  This package owns everything on top:
     limit, caller-supplied timestamp — stamped into every manifest by
     :func:`repro_torch.sweeps.results.write_manifest`;
   * :mod:`~repro_torch.obs.profiling`  — ``record_function`` + NVTX phase
-    spans inside the engines (trajectory -> policy replay -> allocate ->
-    score -> decode), host spans, and a ``REPRO_PROFILE=<dir>``-gated
+    spans inside the engines (``ENGINE_PHASES``: lift -> trajectory ->
+    policy replay -> allocate -> static loads -> score -> channel ->
+    decode -> fetch) and a ``REPRO_PROFILE=<dir>``-gated
     ``torch.profiler`` trace context manager;
   * :mod:`~repro_torch.obs.taps`       — the ``tap=`` flag's host side:
     handler registry (:func:`add_tap` / :func:`capture_taps`), event
@@ -41,7 +42,8 @@ outputs stay bit-identical.  This package owns everything on top:
     provenance-stamped record, and :func:`trend_report` flags robust
     slowdowns across the trajectory.
 
-The public names are the JAX package's ``repro.obs`` names.  The
+The public names are the JAX package's ``repro.obs`` names but
+``annotate``, which the port does not have.  The
 persistent compile cache is the kernel library directory
 (:mod:`repro_torch.launch.cache` moves it); :func:`counters.persistent_cache_hits`
 counts libraries found already built plus the hits noted by
@@ -55,8 +57,7 @@ from .history import (HISTORY_BASENAME, HISTORY_ENV, append_record,
                       trend_report)
 from .metrics import (DEFAULT as default_metrics, JsonlSink, MetricsRegistry,
                       ProgressLine, record_compile, tap_to_registry, timed)
-from .profiling import (PROFILE_ENV, annotate, phase, profile_dir,
-                        profile_trace)
+from .profiling import PROFILE_ENV, phase, profile_dir, profile_trace
 from .provenance import provenance
 from .taps import (EVENT_STREAMS, TAP_ENGINES, add_tap, capture_taps,
                    remove_tap, tap_names, validate_event)
@@ -68,7 +69,7 @@ __all__ = [
     "EVENT_STREAMS", "FaultTelemetry", "HISTORY_BASENAME", "HISTORY_ENV",
     "JsonlSink", "MetricsRegistry", "PROFILE_ENV", "ProgressLine",
     "ServingTelemetry", "TAP_ENGINES", "TelemetryFrame", "add_tap",
-    "annotate", "append_record", "capture_taps", "compile_events",
+    "append_record", "capture_taps", "compile_events",
     "counter_names", "default_metrics", "history_path", "metric_streams",
     "metric_table", "phase", "profile_dir", "profile_trace", "provenance",
     "read_history", "record_compile", "record_from_manifest",

@@ -1,16 +1,15 @@
-"""Profiling hooks: named phase spans, host spans, REPRO_PROFILE traces.
+"""Profiling hooks: named phase spans and REPRO_PROFILE traces.
 
-Three layers, as in the JAX package:
+Two layers (the JAX package's, without its ``annotate``):
 
-  * :func:`phase` — a span around one engine phase (``trajectory`` ->
-    ``policy_replay`` -> ``allocate`` -> ``score`` -> ``decode``):
+  * :func:`phase` — a span around one engine phase running on a device:
     ``torch.profiler.record_function("repro.<name>")`` on the host, plus
     an NVTX range when the phase runs on a CUDA device.  Where the JAX
     package's ``named_scope`` costs nothing at run time, a span here costs
     a few microseconds of host time a call, so the engines wrap whole
-    phases, never per-round work;
-  * :func:`annotate` — a host span of the caller's own name (e.g. around
-    one benchmark step);
+    phases and blocks, never per-round or per-row work, and a span adds
+    no host read, synchronize or copy of its own.  :data:`ENGINE_PHASES`
+    lists every name the engines open;
   * :func:`profile_trace` — the collection gate: when ``REPRO_PROFILE``
     names a directory, the context manager collects a ``torch.profiler``
     trace (CPU and, with a card, CUDA activity) of its body and writes it
@@ -30,8 +29,21 @@ import torch
 
 PROFILE_ENV = "REPRO_PROFILE"
 
-# engine phases, in execution order
-ENGINE_PHASES = ("trajectory", "policy_replay", "allocate", "score", "decode")
+# every span the engines open, in execution order (``repro.<name>``):
+#   lift          host -> device lifting of a call's inputs
+#   trajectory    the worker trajectories
+#   policy_replay every allocator strategy's predicted p_good
+#   allocate      LEA's allocation (rank sort, tails, argmax), a block
+#   static_loads  the static strategies' loads, a block: every resampler
+#                 try, the static_single draw, the stack of all loads
+#   static_wait   inside static_loads: the resampler's one host read a try
+#                 (its calls count the tries)
+#   score         the deadline rule over every strategy's loads, a block
+#   channel       the fault trace: base_trace and the channel's injectors
+#   decode        per-packet decodes (faults), the coded round's decode
+#   fetch         the result assembled and copied to the host
+ENGINE_PHASES = ("lift", "trajectory", "policy_replay", "allocate", "static_loads",
+                 "static_wait", "score", "channel", "decode", "fetch")
 
 _TRACES = itertools.count()
 
@@ -44,10 +56,13 @@ def profile_dir() -> str | None:
 @contextlib.contextmanager
 def phase(name: str, device=None) -> Iterator[None]:
     """Span ``repro.<name>`` around one engine phase running on ``device``
-    (an NVTX range too when that is a CUDA device)."""
+    (an NVTX range too when that is a CUDA device).  The profiler's range
+    opens only while a profiler collects: an idle ``record_function``
+    still costs several microseconds a call."""
     nvtx = device is not None and torch.device(device).type == "cuda"
     label = f"repro.{name}"
-    with torch.profiler.record_function(label):
+    collecting = torch.autograd._profiler_enabled()
+    with torch.profiler.record_function(label) if collecting else contextlib.nullcontext():
         if nvtx:
             torch.cuda.nvtx.range_push(label)
         try:
@@ -55,13 +70,6 @@ def phase(name: str, device=None) -> Iterator[None]:
         finally:
             if nvtx:
                 torch.cuda.nvtx.range_pop()
-
-
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Host span under the caller's name; inert unless a trace is collected."""
-    with torch.profiler.record_function(name):
-        yield
 
 
 @contextlib.contextmanager

@@ -38,6 +38,7 @@ from repro_torch.device import resolve_device
 from repro_torch.obs import counters as _obs_counters
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import taps as _taps
+from repro_torch.obs.profiling import phase as _phase
 from repro_torch.random import Draws, as_draws, torch_draws
 
 from .registry import ScenarioBatch, SweepGroup
@@ -129,7 +130,8 @@ def _cached_shard(group: SweepGroup, dev: torch.device) -> tuple[ScenarioBatch, 
     if hit is not None and hit[0] is group:
         _shard_cache.move_to_end(key)
         return hit[1], True
-    batch = group.batch.to(dev)
+    with _phase("lift", dev):
+        batch = group.batch.to(dev)
     _shard_cache[key] = (group, batch)
     while len(_shard_cache) > _SHARD_CACHE_MAX:
         _shard_cache.popitem(last=False)
@@ -228,9 +230,10 @@ def _run_group_pipelined(group: SweepGroup, batch: ScenarioBatch, draws,
         nonlocal fold_s
         j, hosts, done = inflight.popleft()
         t0 = time.perf_counter()
-        if done is not None:
-            done.synchronize()                  # waits for block j's copy only
-        host_blocks[j] = hosts[0].numpy()
+        with _phase("fetch", dev):
+            if done is not None:
+                done.synchronize()              # waits for block j's copy only
+            host_blocks[j] = hosts[0].numpy()
         if tap:
             succ_h, err_h = _taps.unpack_words(hosts[1].numpy(), layout)
             throughput._emit_pool(rows, j, min((j + 1) * chunk, rounds), succ_h, err_h,
@@ -321,19 +324,22 @@ def run_group(
     c0 = _obs_counters.compile_events()
     t0 = time.perf_counter()
     with _metrics.timed("phase.sweeps_run_group"):
-        batch = group.batch.to(dev)
+        with _phase("lift", dev):
+            batch = group.batch.to(dev)
         out = throughput.sweep_pool(
             draws, batch.pool, batch.p_gg, batch.p_bb, batch.mu_g, batch.mu_b,
             batch.deadline, group.rounds, group.strategies, round_chunk,
             telemetry, tap, tap_stride, device=dev,
         )
-        succ = (out[0] if telemetry else out).cpu().numpy()
+        with _phase("fetch", dev):
+            succ = (out[0] if telemetry else out).cpu().numpy()
     _metrics.record_compile("sweeps.run_group", _obs_counters.compile_events() - c0,
                             time.perf_counter() - t0)
     if not telemetry:
         return succ
     b = group.batch.rows
-    return succ[:b], type(out[1])(*(x[:b].cpu().numpy() for x in out[1]))
+    with _phase("fetch", dev):
+        return succ[:b], type(out[1])(*(x[:b].cpu().numpy() for x in out[1]))
 
 
 def run_groups(

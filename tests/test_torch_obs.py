@@ -35,7 +35,9 @@ from repro_torch.core import coded_ops, lagrange, throughput
 from repro_torch.core.lea import LoadParams, pool_load
 from repro_torch.launch import serve
 from repro_torch.obs import counters, history, metrics, taps
+from repro_torch.obs.profiling import ENGINE_PHASES
 from repro_torch.obs.provenance import has_required_fields
+from repro_torch.random import as_draws
 from test_torch_engine import JaxDraws
 from test_torch_faults import JaxFaultDraws, _grid
 from test_torch_serving import JaxServingDraws, _keys
@@ -647,8 +649,6 @@ def test_phase_gating_without_a_trace(monkeypatch):
         assert out is None
         with obs.phase("allocate", CPU):
             x = torch.arange(3) * 2
-        with obs.annotate("span"):
-            pass
     assert x.tolist() == [0, 2, 4]
 
 
@@ -658,15 +658,52 @@ def test_profile_trace_holds_the_engine_phase_spans(tmp_path, monkeypatch):
     rng = np.random.default_rng(0)
     coded = coded_ops.encode_dataset(spec, torch.from_numpy(
         rng.standard_normal((spec.k, 4, 5)).astype(np.float32)))
+    _, _, _, args, geometry = _grid(32)
     with obs.profile_trace("phases") as out:
         assert out == str(tmp_path)
         sweeps.run("fig3", rounds=32, device=CPU)
+        faults.sweep_faults(7, *args, **geometry, device=CPU)
         coded_ops.coded_matmul_device(coded, torch.ones(5, 1), torch.ones(spec.nr, dtype=bool))
     trace, = tmp_path.glob("phases.*.trace.json")
     names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
-    for span in ("repro.trajectory", "repro.policy_replay", "repro.allocate", "repro.score",
-                 "repro.decode", "phases"):
-        assert span in names, span
+    assert "phases" in names
+    assert {n for n in names if n.startswith("repro.")} == {
+        f"repro.{name}" for name in ENGINE_PHASES}
+
+
+class _CountingDraws:
+    """A draw source that counts the static resampler's draws."""
+
+    def __init__(self, seed):
+        self.inner, self.static_calls = as_draws(seed, CPU), 0
+
+    def initial(self, *a):
+        return self.inner.initial(*a)
+
+    def steps(self, *a):
+        return self.inner.steps(*a)
+
+    def static(self, *a):
+        self.static_calls += 1
+        return self.inner.static(*a)
+
+    def single(self, *a):
+        return self.inner.single(*a)
+
+
+@pytest.mark.parametrize("round_chunk", [None, 40])
+def test_static_wait_spans_count_the_resamplers_host_reads(round_chunk):
+    """One ``repro.static_wait`` a try that draws, and one more a block for
+    the read that ends it (no round reaches the 128-try cap here)."""
+    group, = sweeps.build_groups(sweeps.expand("fig3", rounds=100), seeds=2)
+    draws = _CountingDraws(3)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        sweeps.run_group(group, round_chunk=round_chunk, draws=draws, device=CPU)
+    calls = {e.key: e.count for e in prof.key_averages()}
+    blocks = 1 if round_chunk is None else -(-100 // round_chunk)
+    assert 0 < draws.static_calls < blocks * throughput.STATIC_MAX_TRIES
+    assert calls["repro.static_wait"] == draws.static_calls + blocks
+    assert calls["repro.static_loads"] == calls["repro.score"] == blocks
 
 
 def test_profile_trace_stops_and_writes_when_the_body_raises(tmp_path, monkeypatch):
