@@ -30,14 +30,20 @@ Phases, one line each (any failure raises and exits non-zero):
      single call between CUDA events (``ms``; on an idle card this counts
      the call's host work before its launch too) and 10 back-to-back calls
      over 10 (``*_batched``; host work hidden where it is shorter than the
-     kernel), each the median of warm runs;
+     kernel), each the median of warm runs.  Then the static resampler's
+     kernel (``static_resample_cuda``) against its plain version at one
+     (1 024, 2 330, 15) block of the fig3 sweep: both driven by the
+     engine's loop on the same CUDA uniforms, equal to the bit with the
+     same reads a try; a block's tries timed (host reads included) beside
+     the plain version's, with the bound from that run's bytes, and the
+     first try alone;
   3. the main path: ``sweeps.run("fig3", seeds=64)`` at the paper's scale
      (n = 15, K* = 99, M = 20 000 rounds, 4 chains, lea / static / oracle),
      held to the committed ``BENCH_fig3.json`` (|mean - value| <= 4.5 x the
      across-seed standard deviation, LEA above static everywhere); the
-     per-row kernel's launch count must rise;
+     per-row kernel's and the resampler's launch counts must rise;
   4. the static-threshold entry: ``throughput.compare`` on Fig. 3 scenario 1;
-     the static kernel's launch count must rise;
+     the static kernel's and the resampler's launch counts must rise;
   5. a small fig3 run on the card and on the CPU from the same recorded
      draws: the per-round successes may differ in at most 0.1% of rounds
      (the kernel repeats the plain version's roundings, so 0 is expected);
@@ -183,7 +189,8 @@ Phases, one line each (any failure raises and exits non-zero):
      unchunked call timed, and a tapped pipelined call gives 256 x 8 events
      with the same successes; (b) two child processes, one after the other,
      with ``REPRO_COMPILE_CACHE`` at one fresh directory: the cold one runs
-     one ``nvcc`` and the warm one none (a cache hit), ``build/`` unchanged;
+     two ``nvcc`` (B1 and the static resampler) and the warm one none
+     (cache hits), ``build/`` unchanged;
      (c) ``run_multihost("hetero_kstar", pipeline=True)`` in two child
      processes joined by gloo on localhost: process 0's merged successes and
      summaries equal this process's interleave of the two row shards, and at
@@ -325,6 +332,8 @@ KERNELS = {   # wrapper: (source, TPU kernel it replaces)
                             "src/repro/kernels/coded_gradient/kernel.py:40"),
     "flash_attention_cuda": (CSRC + "flash_attention.cu",
                              "src/repro/kernels/flash_attention/kernel.py:110"),
+    "static_resample_cuda": (CSRC + "static_resample.cu",
+                             "none (whole-batch passes, src/repro/core/throughput.py:178)"),
 }
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 
@@ -696,8 +705,85 @@ def reset_all_launch_counts() -> None:
     from repro_torch.kernels import gf
     from repro_torch.kernels import lagrange_encode as le
     from repro_torch.kernels import poisson_binomial as pb
-    for mod in (pb, gf, le, cg, fa):
+    from repro_torch.kernels import static_resample as sr
+    for mod in (pb, gf, le, cg, fa, sr):
         mod.reset_launch_counts()
+
+
+def check_static_resample() -> dict:
+    """Phase 2, last: the static resampler's kernel against its plain
+    version at one (1 024, 2 330, 15) block of the fig3 sweep (the four
+    chains' pi_g, a full mask, K* 99, loads (10, 3) per row), both driven by
+    the engine's loop on the same CUDA uniforms: loads, flags and the count
+    read before each try equal, one launch a try.  Then a block's tries
+    timed, host reads included, beside the plain version's, against the
+    bytes the kernel moves in them (every round's flag a try, 4n bytes of
+    uniforms read and of loads written a round redrawn), and the first try
+    alone, on fresh blocks."""
+    from repro_torch.core import markov
+    from repro_torch.core.throughput import STATIC_MAX_TRIES
+    from repro_torch.kernels import static_resample as sr
+
+    b, m, n = 1024, 2330, 15
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(30)
+    chains = torch.tensor([(0.8, 0.8), (0.8, 0.7), (0.8, 0.533), (0.9, 0.6)],
+                          device="cuda").repeat_interleave(256, 0)
+    ones = torch.ones((b, n), device="cuda")
+    pi_g = markov.stationary_good_prob(chains[:, :1] * ones, chains[:, 1:] * ones)
+    rows = lambda v: torch.full((b,), v, dtype=torch.int32, device="cuda")
+    args = ([pi_g], m, rows(99)[:, None], rows(10)[:, None, None], rows(3)[:, None, None],
+            torch.ones((b, n), dtype=torch.bool, device="cuda"))
+    us = []
+
+    def block(impl):
+        res = impl(*args)
+        reads = []
+        for t in range(STATIC_MAX_TRIES):
+            reads.append(res.unfinished())
+            if not reads[-1]:
+                break
+            if t == len(us):
+                us.append(torch.rand((b, m, n), generator=gen, device="cuda"))
+            res.redraw(us[t])
+        return res.result(), reads
+
+    want, want_reads = block(sr.StaticResampleRef)
+    reset_all_launch_counts()
+    got, reads = block(sr.StaticResampleCuda)
+    launches = sr.launch_counts()["static_resample_cuda"]
+    torch.cuda.synchronize()
+    for (gl, gf), (wl, wf) in zip(got, want, strict=True):
+        if not (torch.equal(gl, wl) and torch.equal(gf, wf)):
+            raise AssertionError("static_resample_cuda: not bit-equal to the plain version "
+                                 f"at the fig3 block, {int((gl != wl).any(-1).sum())} rounds")
+    tries = len(us)
+    if reads != want_reads or launches != tries:
+        raise AssertionError(f"static_resample_cuda: reads {reads} against {want_reads}, "
+                             f"{launches} launches for {tries} tries")
+    del got, want
+    ms = time_ms(lambda: block(sr.StaticResampleCuda), warm=1)
+    plain_ms = time_ms(lambda: block(sr.StaticResampleRef), warm=1, runs=3, batch=2)
+    moved = sum(b * m + 8 * n * r for r in reads[:tries])
+    b_ms, b_by = _bound(moved, 0, 1)
+    first = []
+    for res in [sr.StaticResampleCuda(*args) for _ in range(5)]:
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res.redraw(us[0])
+        stop.record()
+        stop.synchronize()
+        first.append(start.elapsed_time(stop))
+    first_bound, _ = _bound(b * m + 8 * n * b * m, 0, 1)
+    log("kernel", name="static_resample_cuda", block=(b, m, n), tries=tries,
+        pairs_redrawn=sum(reads[:tries]), bit_equal=True, bound_by=b_by,
+        first_try_ms=f"{statistics.median(first):.4f}", first_try_bound_ms=f"{first_bound:.4g}",
+        **timing_fields(b_ms, ms=ms, plain_ms=plain_ms))
+    del us[:]
+    torch.cuda.empty_cache()
+    return {"static_resample_cuda": {
+        "max_abs_err": 0.0, **timing_entry(ms=ms, plain_ms=plain_ms), "bound_ms": b_ms,
+        "bound_by": b_by, "kernel_route": "block", "shape": [[b, m, n]]}}
 
 
 def _feasible_rounds(masks: torch.Tensor, kstar: int) -> list[int]:
@@ -2473,28 +2559,34 @@ def fig3_against_bench(results, bench, strategies=("lea", "static", "oracle")) -
     return lines
 
 
-def speed_fig3(bench) -> int:
+def speed_fig3(bench) -> tuple[int, int]:
     """Phase 14a: fig3 (256 rows x 20 000 rounds) pipelined against the sync
     path at ``round_chunk=2500`` on the group's own generator: equal to the
     bit, both within 4.5 sd of ``BENCH_fig3.json``, 8 B1 launches a call,
-    the carries updated in place; 3 warm runs of each mode timed beside the
-    sync unchunked call; a tapped pipelined call gives 256 x 8 events and
-    the same successes.  Returns B1's launches in 14a."""
+    the carries updated in place, the resampler launched in every call; 3
+    warm runs of each mode timed beside the sync unchunked call; a
+    tapped pipelined call gives 256 x 8 events and the same successes.
+    Returns B1's and the resampler's launches in 14a."""
     from repro_torch import obs, sweeps
     from repro_torch.kernels.poisson_binomial import kernel as kernel_mod
+    from repro_torch.kernels.static_resample import kernel as resample_mod
     from repro_torch.sweeps import executor
 
     group, = sweeps.build_groups(sweeps.expand("fig3"), seeds=64)
     rows, rounds = group.batch.rows, group.rounds
     blocks = -(-rounds // SPEED_CHUNK)
-    launched = 0
+    launched = resampled = 0
 
     def call(**kw):
-        nonlocal launched
-        kernel_mod.reset_launch_counts()
+        nonlocal launched, resampled
+        reset_all_launch_counts()
         out, wall = timed(lambda: sweeps.run_group(group, **kw))
         n = kernel_mod.launch_counts()["success_tails_cuda_w"]
         launched += n
+        tries = resample_mod.launch_counts()["static_resample_cuda"]
+        resampled += tries
+        if tries < 1:
+            raise AssertionError(f"fig3 {kw}: the resampler never launched")
         return out, wall, n
 
     sync, _, n_sync = call(round_chunk=SPEED_CHUNK)
@@ -2539,16 +2631,18 @@ def speed_fig3(bench) -> int:
         walls=json.dumps({m: [round(x, 4) for x in w] for m, w in walls.items()}),
         pipeline_stats=json.dumps({k: (round(v, 5) if isinstance(v, float) else v)
                                    for k, v in stats.items()}),
-        tap_events=len(events), gpu=json.dumps(nvidia_smi_line()))
-    return launched
+        tap_events=len(events), resampler_launches=resampled,
+        gpu=json.dumps(nvidia_smi_line()))
+    return launched, resampled
 
 
 def speed_cache(tmp: Path) -> None:
     """Phase 14b: two child processes, one after the other, with
     ``REPRO_COMPILE_CACHE`` at one fresh directory, each running a
-    2 000-round fig3 group: the cold child builds ``poisson_binomial`` (one
-    nvcc run, no hit), the warm one builds nothing (0 backend compile
-    events, a hit); the repo's ``build/`` is left as it was."""
+    2 000-round fig3 group: the cold child builds ``poisson_binomial`` and
+    ``static_resample`` (two nvcc runs, no hit), the warm one builds nothing
+    (0 backend compile events, hits); the repo's ``build/`` is left as it
+    was."""
     import os
 
     code = ("import json\n"
@@ -2562,6 +2656,7 @@ def speed_cache(tmp: Path) -> None:
             "    'compile_events': counters.compile_events(),\n"
             "    'backend_compile_events': counters.backend_compile_events(),\n"
             "    'nvcc_poisson_binomial': counters.compile_events('build.poisson_binomial'),\n"
+            "    'nvcc_static_resample': counters.compile_events('build.static_resample'),\n"
             "    'cache_hits': counters.persistent_cache_hits(),\n"
             "    'cache_misses': cache.persistent_cache_misses()}))\n")
     where = tmp / "kernel_cache"
@@ -2578,9 +2673,9 @@ def speed_cache(tmp: Path) -> None:
         children[name] = dict(json.loads(proc.stdout.strip().splitlines()[-1]),
                               wall_s=round(time.perf_counter() - t0, 3))
     cold, warm = children["cold"], children["warm"]
-    if (cold["cache_dir"] != str(where) or cold["compile_events"] != 1
-            or cold["nvcc_poisson_binomial"] != 1 or cold["cache_hits"] != 0
-            or cold["cache_misses"] != 1):
+    if (cold["cache_dir"] != str(where) or cold["compile_events"] != 2
+            or cold["nvcc_poisson_binomial"] != 1 or cold["nvcc_static_resample"] != 1
+            or cold["cache_hits"] != 0 or cold["cache_misses"] != 2):
         raise AssertionError(f"cold child: {cold}")
     if (warm["backend_compile_events"] != 0 or warm["compile_events"] != 0
             or warm["cache_hits"] < 1 or warm["cache_misses"] != 0):
@@ -2703,18 +2798,20 @@ def speed_costs() -> None:
 
 
 def speed_path(bench) -> dict[str, int]:
-    """Phase 14: the speed layer; returns B1's launches in 14a, the phase's
-    main path (counts set to 0 before each call there and summed)."""
+    """Phase 14: the speed layer; returns B1's and the resampler's launches
+    in 14a, the phase's main path (counts set to 0 before each call there
+    and summed)."""
     import tempfile
 
     t0 = time.perf_counter()
-    launched = speed_fig3(bench)
+    launched, resampled = speed_fig3(bench)
     with tempfile.TemporaryDirectory() as tmp:
         speed_cache(Path(tmp))
         speed_multihost(Path(tmp))
     speed_costs()
-    log("speed_path", b1_launches=launched, wall_s=f"{time.perf_counter() - t0:.1f}")
-    return {"success_tails_cuda_w": launched}
+    log("speed_path", b1_launches=launched, resampler_launches=resampled,
+        wall_s=f"{time.perf_counter() - t0:.1f}")
+    return {"success_tails_cuda_w": launched, "static_resample_cuda": resampled}
 
 
 # -- phase 19: the multi-card paths, as ranks on the one card ---------------------
@@ -3479,6 +3576,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.poisson_binomial import kernel as kernel_mod
     from repro_torch.kernels.poisson_binomial import success_tails_ref
+    from repro_torch.kernels.static_resample import kernel as resample_mod
     from repro_torch.random import RecordedDraws, ReplayedDraws, torch_draws
 
     smi = nvidia_smi_line()
@@ -3512,21 +3610,23 @@ def main() -> int:
                          for d in fa_kernel.WGMMA_HEAD_DIMS})
 
     record = check_kernels(kernel_mod, success_tails_ref)
+    record.update(check_static_resample())
     phase_done('1-2 build, B1/B2')
 
     # -- phase 3: the main path ------------------------------------------------
     bench = json.loads((ROOT / "BENCH_fig3.json").read_text())
     strategies = ("lea", "static", "oracle")
-    kernel_mod.reset_launch_counts()
+    reset_all_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = sweeps.run("fig3", seeds=64)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches_main = kernel_mod.launch_counts()
-    if launches_main["success_tails_cuda_w"] < 1:
-        raise AssertionError(f"main path never launched the per-row kernel: {launches_main}")
+    launches_main = {**kernel_mod.launch_counts(), **resample_mod.launch_counts()}
+    if launches_main["success_tails_cuda_w"] < 1 or launches_main["static_resample_cuda"] < 1:
+        raise AssertionError(f"main path never launched the per-row kernel or the "
+                             f"resampler: {launches_main}")
     rounds = results[0].scenario.rounds
     rows = sum(r.seeds for r in results)
     for r, line in zip(results, fig3_against_bench(results, bench, strategies)):
@@ -3544,15 +3644,16 @@ def main() -> int:
     phase_done('3 fig3')
 
     # -- phase 4: the static-threshold entry ------------------------------------
-    kernel_mod.reset_launch_counts()
+    reset_all_launch_counts()
     t0 = time.perf_counter()
     cmp = throughput.compare(1, LoadParams(15, 99, 10, 3), [0.8] * 15,
                              [0.8] * 15, 10.0, 3.0, 1.0, 20_000)
     torch.cuda.synchronize()
     wall_cmp = time.perf_counter() - t0
-    launches_static = kernel_mod.launch_counts()
-    if launches_static["success_tails_cuda"] < 1:
-        raise AssertionError(f"compare never launched the static kernel: {launches_static}")
+    launches_static = {**kernel_mod.launch_counts(), **resample_mod.launch_counts()}
+    if launches_static["success_tails_cuda"] < 1 or launches_static["static_resample_cuda"] < 1:
+        raise AssertionError(f"compare never launched the static kernel or the resampler: "
+                             f"{launches_static}")
     if not cmp["lea"] > cmp["static"]:
         raise AssertionError(f"compare: LEA does not beat static: {cmp}")
     log("compare", **{f"R_{s}": f"{v:.4f}" for s, v in cmp.items()},
@@ -3645,11 +3746,16 @@ def main() -> int:
     phase_done('19 sharded')
 
     kernels = []
+    resampled = {"fig3": launches_main["static_resample_cuda"],
+                 "compare": launches_static["static_resample_cuda"]}
     launches = {"success_tails_cuda_w": launches_main["success_tails_cuda_w"],
                 "success_tails_cuda": launches_static["success_tails_cuda"],
-                **launches_coded, "flash_attention_cuda": launches_lm}
-    by_path = {"fig3": {"success_tails_cuda_w": launches_main["success_tails_cuda_w"]},
-               "compare": {"success_tails_cuda": launches_static["success_tails_cuda"]},
+                **launches_coded, "flash_attention_cuda": launches_lm,
+                "static_resample_cuda": resampled["fig3"]}
+    by_path = {"fig3": {"success_tails_cuda_w": launches_main["success_tails_cuda_w"],
+                        "static_resample_cuda": resampled["fig3"]},
+               "compare": {"success_tails_cuda": launches_static["success_tails_cuda"],
+                           "static_resample_cuda": resampled["compare"]},
                "coded": launches_coded, "serve": {"flash_attention_cuda": launches_lm},
                "faults": launches_faults, "serving": launches_serving, "obs": launches_obs,
                "speed": launches_speed, "dense_serve": {"flash_attention_cuda": launches_dense},

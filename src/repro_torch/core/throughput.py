@@ -25,7 +25,8 @@ engine vectorises over rounds AND over B independent rows (the JAX package's
     single Poisson-binomial DP (the CUDA kernel on a GPU);
   * the static strategies resample every round in one loop over tries on
     the host, stopping when no round is unfinished or after 128 tries (one
-    host read a try, whatever the number of strategies);
+    host read a try, whatever the number of strategies; on the card a try
+    is one kernel launch that touches only the unfinished rounds);
     rounds that finished ignore later draws, so each round sees exactly its
     own draw chain.  ``static`` and ``static_equal`` consume the same draws,
     as in the JAX package; rows still short of K* after the cap carry an
@@ -53,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.static_resample import count_try, static_resampler
 from repro_torch.obs import taps as _taps
 from repro_torch.obs.profiling import phase as _phase
 from repro_torch.obs.telemetry import TelemetryFrame
@@ -149,35 +151,24 @@ def _static_loads_batch(draws, rounds, start, stop, pis, kstar, ell_g, ell_b,
     stationary distribution; ``static_equal``: 1/2), one per strategy; all
     of them consume the same uniforms of try t.  A round redraws until its
     total load reaches K* or the 128-try cap; finished rounds ignore later
-    draws.  Returns ``[(loads (B, m, n) int32, feasible (B, m) bool)]``.
+    draws.  A try is one launch of the resampler's kernel on the card
+    (:mod:`repro_torch.kernels.static_resample`), which touches only the
+    unfinished rounds.  Returns ``[(loads (B, m, n) int32, feasible (B, m)
+    bool)]``.
     """
     b, n = pis[0].shape
     m = stop - start
     dev = pis[0].device
-
-    def masked(loads):
-        return loads if mask is None else torch.where(mask[:, None, :], loads, 0)
-
-    def unfinished(loads):
-        return masked(loads).sum(dim=-1) < kstar
-
-    loads = [torch.zeros((b, m, n), dtype=torch.int32, device=dev) for _ in pis]
+    resampler = static_resampler(pis, m, kstar, ell_g, ell_b, mask)
     for t in range(STATIC_MAX_TRIES):
-        redo = [unfinished(x) for x in loads]
-        # one host read a try: every strategy's flag in one copy
+        # one host read a try: the unfinished (strategy, round) pairs
         with _phase("static_wait", dev):
-            more = bool(torch.stack([r.any() for r in redo]).any())
-        if not more:
+            left = resampler.unfinished()
+        if not left:
             break
-        u = draws.static(b, rounds, start, stop, n, t).to(dev)
-        for j, pi in enumerate(pis):
-            new = torch.where(u < pi[:, None, :], ell_g, ell_b).to(torch.int32)
-            loads[j] = torch.where(redo[j][..., None], new, loads[j])
-    out = []
-    for x in loads:
-        x = masked(x)
-        out.append((x, x.sum(dim=-1) >= kstar))
-    return out
+        count_try(left, len(pis) * b * m)
+        resampler.redraw(draws.static(b, rounds, start, stop, n, t).to(dev))
+    return resampler.result()
 
 
 def _rollout_block_stats(states_b, draws, rounds, start, p_alloc_b, pi_g, load,

@@ -9,7 +9,11 @@
     ``csrc/coded_gradient.cu``;
   * ``flash_attention`` — causal / sliding-window GQA attention (forward),
     ``csrc/flash_attention.cu``; plain versions ``flash_attention_ref`` (what
-    the kernel computes) and ``attention_ref`` (the JAX package's oracle).
+    the kernel computes) and ``attention_ref`` (the JAX package's oracle);
+  * ``static_resample`` — one try of the static strategies' rejection
+    resampler over the unfinished rounds of a block,
+    ``csrc/static_resample.cu`` (no TPU kernel: the JAX package's engine
+    resamples with whole-batch passes).
 
 ``build`` compiles ``csrc/*.cu`` with nvcc at first use (``build_all``: one
 nvcc per source, in parallel); ``dispatch`` is the route rule (CUDA tensor ->

@@ -1036,6 +1036,112 @@ def test_sharded_smoke_train_on_the_card_matches_cpu_ranks(sharded_runs):
                                rtol=2e-2, atol=2e-3)
 
 
+# ---------------------------------------------------------------------------
+# the static resampler's kernel: the plain version's loads, flags and draws
+# ---------------------------------------------------------------------------
+
+def _resample_kernel_and_plain(case, draws_for):
+    """``_static_loads_batch`` on the card (the kernel) and the plain
+    version driven by the same loop, each on fresh draws from
+    ``draws_for()``: both results, both draw records, the kernel's counters
+    and the count each route read before every try."""
+    from _resample_cases import batch_args, drive, resampler_args
+
+    from repro_torch.core import throughput
+    from repro_torch.kernels import static_resample as sr
+    from repro_torch.random import RecordedDraws
+
+    draws = RecordedDraws(draws_for())
+    sr.reset_launch_counts()
+    sr.reset_engagement()
+    got = throughput._static_loads_batch(draws, *batch_args(case))
+    counts = {**sr.engagement(), **sr.launch_counts()}
+    _, reads = drive(sr.StaticResampleCuda(*resampler_args(case)), draws_for(), case)
+    plain_draws = RecordedDraws(draws_for())
+    want, plain_reads = drive(sr.StaticResampleRef(*resampler_args(case)), plain_draws, case)
+    torch.cuda.synchronize()
+    return got, want, draws.calls, plain_draws.calls, counts, reads, plain_reads
+
+
+def _assert_same_resampling(case, got, want, calls, plain_calls, counts, reads,
+                            plain_reads):
+    for (gl, gf), (wl, wf) in zip(got, want, strict=True):
+        assert gl.is_cuda and gl.dtype == torch.int32 and gf.dtype == torch.bool
+        assert torch.equal(gl, wl) and torch.equal(gf, wf)
+    assert len(calls) == len(plain_calls)
+    for a, b in zip(calls, plain_calls):
+        assert torch.equal(a, b)
+    assert reads == plain_reads
+    tries = len(calls)
+    b, m = case["pis"][0].shape[0], case["stop"] - case["start"]
+    assert counts == {"tries": tries, "redraws": sum(reads[:tries]),
+                      "slots": tries * len(case["pis"]) * b * m,
+                      "static_resample_cuda": tries}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pool_mask_s2", "pool_s1", "scalars_s1", "scalars_s2",
+                                  "pi_zero", "kstar_nonpositive", "all_masked_row",
+                                  "one_row_short", "wide_s2_mask", "wide_s2_ragged"])
+def test_static_resample_kernel_is_the_plain_version_to_the_bit(cuda_device, name):
+    from _resample_cases import check_edges, resample_case
+
+    from repro_torch.random import torch_draws
+
+    case = resample_case(name, cuda_device)
+    out = _resample_kernel_and_plain(case, lambda: torch_draws(23, cuda_device))
+    _assert_same_resampling(case, *out)
+    check_edges(name, case, out[0], len(out[2]))
+
+
+@pytest.mark.cuda
+def test_static_resample_kernel_at_the_fig3_block(cuda_device):
+    """One (1 024, 2 330, 15) block of the fig3 sweep (the four chains' pi_g,
+    a full mask, K* 99, loads (10, 3) per row) under the benchmark's keyed
+    draws."""
+    from portbench.draws import KeyedDraws
+    from repro_torch.core import markov
+
+    b, m, n, rounds = 1024, 2330, 15, 20_000
+    chains = torch.tensor([(0.8, 0.8), (0.8, 0.7), (0.8, 0.533), (0.9, 0.6)],
+                          dtype=torch.float32, device=cuda_device).repeat_interleave(256, 0)
+    ones = torch.ones((b, n), device=cuda_device)
+    pi_g = markov.stationary_good_prob(chains[:, :1] * ones, chains[:, 1:] * ones)
+    rows = lambda v: torch.full((b,), v, dtype=torch.int32, device=cuda_device)
+    case = dict(rounds=rounds, start=3 * m, stop=4 * m, pis=[pi_g], kstar=rows(99)[:, None],
+                ell_g=rows(10)[:, None, None], ell_b=rows(3)[:, None, None],
+                mask=torch.ones((b, n), dtype=torch.bool, device=cuda_device))
+    out = _resample_kernel_and_plain(case, lambda: KeyedDraws(2**40 + 7, 3, cuda_device))
+    _assert_same_resampling(case, *out)
+    counts = out[4]
+    assert 10 < counts["tries"] < 64
+    print(f"[static_resample_fig3] {counts} share={counts['redraws'] / counts['slots']:.4f}")
+
+
+@pytest.mark.cuda
+def test_static_resample_kernel_refuses_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels.static_resample import StaticResampleCuda
+
+    pi = torch.full((2, 15), 0.5, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        StaticResampleCuda([pi.double()], 4, 99, 10, 3)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        StaticResampleCuda([pi.cpu()], 4, 99, 10, 3)
+    with pytest.raises(ValueError, match="strategies"):
+        StaticResampleCuda([pi] * 9, 4, 99, 10, 3)
+    with pytest.raises(ValueError, match="kstar"):
+        StaticResampleCuda([pi], 4, torch.tensor([99, 99], device=cuda_device), 10, 3)
+    with pytest.raises(ValueError, match="mask"):
+        StaticResampleCuda([pi], 4, 99, 10, 3, torch.ones((2, 14), dtype=torch.bool,
+                                                          device=cuda_device))
+    resampler = StaticResampleCuda([pi], 4, 99, 10, 3)
+    assert resampler.unfinished() == 8
+    with pytest.raises(ValueError, match="contiguous"):
+        resampler.redraw(torch.rand((2, 15, 4), device=cuda_device).transpose(1, 2))
+    with pytest.raises(ValueError, match="float32"):
+        resampler.redraw(torch.rand((2, 5, 15), device=cuda_device))
+
+
 if __name__ == "__main__":
     import sys
 

@@ -752,13 +752,15 @@ def test_launch_counts_cover_every_kernel_module():
     from repro_torch.kernels.gf import kernel as gfk
     from repro_torch.kernels.lagrange_encode import kernel as le
     from repro_torch.kernels.poisson_binomial import kernel as pb
-    mods = (cg, fa, gfk, le, pb)
+    from repro_torch.kernels.static_resample import kernel as sr
+    mods = (cg, fa, gfk, le, pb, sr)
     want = {}
     for mod in mods:
         want.update(mod.launch_counts())
     assert set(counters.launch_counts()) == set(want) == {
         "coded_gradient_cuda", "flash_attention_cuda", "matmul_gf_cuda", "bmm_gf_cuda",
-        "encode_matrix_cuda", "success_tails_cuda", "success_tails_cuda_w"}
+        "encode_matrix_cuda", "success_tails_cuda", "success_tails_cuda_w",
+        "static_resample_cuda"}
     pb._LAUNCHES["success_tails_cuda_w"] += 3
     assert counters.launch_counts()["success_tails_cuda_w"] == pb.launch_counts()[
         "success_tails_cuda_w"]

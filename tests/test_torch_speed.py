@@ -14,6 +14,7 @@ Run as a script with ``--worker`` this file is one process of the
 two-process ``run_multihost`` test.
 """
 
+import contextlib
 import json
 import os
 import socket
@@ -36,12 +37,14 @@ from repro.sweeps import executor as jexecutor
 from repro_torch import core, obs, sweeps
 from repro_torch.core import throughput
 from repro_torch.core.lea import LoadParams, pool_load
-from repro_torch.kernels import build
+from repro_torch.kernels import build, static_resample
+from repro_torch.kernels.static_resample import StaticResampleRef
 from repro_torch.launch import cache, hlo_cost, mesh
 from repro_torch.obs import counters
-from repro_torch.random import RecordedDraws, torch_draws
+from repro_torch.random import RecordedDraws, ReplayedDraws, torch_draws
 from repro_torch.sweeps import executor
 from repro_torch.sweeps import results as results_mod
+import _resample_cases as resample_cases
 from test_torch_engine import JaxDraws
 
 CPU = "cpu"
@@ -135,8 +138,9 @@ def test_strategies_tuple_is_the_jax_packages():
 # ---------------------------------------------------------------------------
 
 def _static_loads_one_read_a_strategy(draws, rounds, start, stop, pis, kstar, ell_g,
-                                      ell_b, mask=None):
-    """The resampler as it read its flags before: one host read a strategy."""
+                                      ell_b, mask=None, redrawn=None):
+    """The resampler as it read its flags before: one host read a strategy.
+    ``redrawn`` collects the unfinished (strategy, round) pairs of each try."""
     b, n = pis[0].shape
     m = stop - start
 
@@ -148,6 +152,8 @@ def _static_loads_one_read_a_strategy(draws, rounds, start, stop, pis, kstar, el
         redo = [masked(x).sum(dim=-1) < kstar for x in loads]
         if not any(bool(r.any()) for r in redo):
             break
+        if redrawn is not None:
+            redrawn.append(sum(int(r.sum()) for r in redo))
         u = draws.static(b, rounds, start, stop, n, t)
         for j, pi in enumerate(pis):
             new = torch.where(u < pi[:, None, :], ell_g, ell_b).to(torch.int32)
@@ -181,6 +187,59 @@ def test_static_resampler_makes_the_same_tries_with_one_read_a_try(source):
             assert torch.equal(gl, wl) and torch.equal(gf, wf)
     assert len(new_draws.calls) == len(old_draws.calls) > 2
     for a, b_ in zip(new_draws.calls, old_draws.calls):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("name", resample_cases.CASES)
+def test_static_resample_counter_counts_the_plain_routes_tries(name, monkeypatch):
+    """``tries`` equals the draws (one a ``repro.static_wait`` read but the
+    last, unless the cap ends the loop), ``redraws`` the unfinished pairs of
+    every try as the old one-read-a-strategy loop finds them, ``slots``
+    S x B x m a try."""
+    case = resample_cases.resample_case(name, CPU)
+    waits = []
+
+    @contextlib.contextmanager
+    def phase(label, device=None):
+        waits.append(label)
+        yield
+
+    monkeypatch.setattr(throughput, "_phase", phase)
+    draws = RecordedDraws(torch_draws(13, CPU))
+    static_resample.reset_engagement()
+    got = throughput._static_loads_batch(draws, *resample_cases.batch_args(case))
+    counts = static_resample.engagement()
+    redrawn = []
+    want = _static_loads_one_read_a_strategy(ReplayedDraws(draws.calls),
+                                             *resample_cases.batch_args(case),
+                                             redrawn=redrawn)
+    for (gl, gf), (wl, wf) in zip(got, want):
+        assert torch.equal(gl, wl) and torch.equal(gf, wf)
+    tries = len(draws.calls)
+    capped = tries == throughput.STATIC_MAX_TRIES
+    assert waits == ["static_wait"] * (tries + (not capped))
+    b, m = case["pis"][0].shape[0], case["stop"] - case["start"]
+    assert counts == {"tries": tries, "redraws": sum(redrawn),
+                      "slots": tries * len(case["pis"]) * b * m}
+    assert len(redrawn) == tries
+    resample_cases.check_edges(name, case, got, tries)
+
+
+@pytest.mark.parametrize("name", resample_cases.CASES)
+def test_static_resample_ref_is_the_one_read_a_strategy_loop(name):
+    case = resample_cases.resample_case(name, CPU)
+    draws = RecordedDraws(torch_draws(17, CPU))
+    got, reads = resample_cases.drive(StaticResampleRef(*resample_cases.resampler_args(case)),
+                                      draws, case)
+    old_draws = RecordedDraws(torch_draws(17, CPU))
+    redrawn = []
+    want = _static_loads_one_read_a_strategy(old_draws, *resample_cases.batch_args(case),
+                                             redrawn=redrawn)
+    for (gl, gf), (wl, wf) in zip(got, want):
+        assert torch.equal(gl, wl) and torch.equal(gf, wf)
+    assert [r for r in reads if r] == redrawn
+    assert len(draws.calls) == len(old_draws.calls) == len(redrawn)
+    for a, b_ in zip(draws.calls, old_draws.calls):
         assert torch.equal(a, b_)
 
 
