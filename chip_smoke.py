@@ -30,7 +30,15 @@ Phases, one line each (any failure raises and exits non-zero):
      single call between CUDA events (``ms``; on an idle card this counts
      the call's host work before its launch too) and 10 back-to-back calls
      over 10 (``*_batched``; host work hidden where it is shorter than the
-     kernel), each the median of warm runs.  Then the static resampler's
+     kernel), each the median of warm runs.  Then the fused allocation
+     (``allocate_masked_cuda``) against the composition it replaces (stable
+     sort, B1, argmax) at one fig3 block (2, 1 024, 2 330, 15), a slice of a
+     (2, 1 024, 4 660, 15) tensor, with the engine's (1, 1 024, 1, .) pool:
+     loads and i* equal to the bit, one launch and no sort kernel under
+     ``allocate_masked`` (``torch.profiler``), timed as kernel, through
+     ``allocate_masked`` and as the composition, beside its byte bound
+     (p read, loads and i* written), each also per 20 000-round sweep.
+     Then the static resampler's
      kernel (``static_resample_cuda``) against its plain version at one
      (1 024, 2 330, 15) block of the fig3 sweep: both driven by the
      engine's loop on the same CUDA uniforms, equal to the bit with the
@@ -41,7 +49,8 @@ Phases, one line each (any failure raises and exits non-zero):
      (n = 15, K* = 99, M = 20 000 rounds, 4 chains, lea / static / oracle),
      held to the committed ``BENCH_fig3.json`` (|mean - value| <= 4.5 x the
      across-seed standard deviation, LEA above static everywhere); the
-     per-row kernel's and the resampler's launch counts must rise;
+     fused allocation's and the resampler's launch counts must rise, and B1's
+     per-row entry must not launch;
   4. the static-threshold entry: ``throughput.compare`` on Fig. 3 scenario 1;
      the static kernel's and the resampler's launch counts must rise;
   5. a small fig3 run on the card and on the CPU from the same recorded
@@ -123,8 +132,8 @@ Phases, one line each (any failure raises and exits non-zero):
  11. the fault-injection runtime (``repro_torch.faults``, ``runtime``):
      (a) ``sweeps.expand("packet_erasure", rounds=20_000)`` with 8 seeds a
      cell (72 rows, lea and static, ``preempt`` + ``packet_bernoulli`` with
-     each row's parameters) through ``faults.sweep_faults``: B1 must launch,
-     as many times as for one cell; no round recovered all-or-nothing may
+     each row's parameters) through ``faults.sweep_faults``: the fused
+     allocation must launch, as many times as for one cell; no round recovered all-or-nothing may
      be lost by the conserving decode, which must recover more rounds over
      the faulted cells; each cell's LEA rates (all-or-nothing, conserving,
      partial only) within 4.5 sd of ``BENCH_faults.json`` (a 512-round,
@@ -147,13 +156,13 @@ Phases, one line each (any failure raises and exits non-zero):
      pool (n = 15, K* = 50, loads (10, 3), p_gg 0.8, p_bb 0.7, mu (10, 3),
      d = 1): (a) ``sweeps.expand("arrival_grid", rounds=512)`` with 16 seeds
      a cell (96 rows), admit-all and controlled on the same generator
-     seeds: every row conserves its requests, B1 launches rounds + 1 times a
-     call, each cell's controlled on-time rate within 4.5 across-seed sd of
+     seeds: every row conserves its requests, B1 launches once a call (the
+     admission gate) and the fused allocation once a round, each cell's controlled on-time rate within 4.5 across-seed sd of
      ``BENCH_serving.json``, and over the overloaded cells (rate above its
      ``sustainable_rate``) controlled serves strictly more on time than
      admit-all; (b) the same grid at the family's 2 000 rounds, controlled,
      a first and a warmed call timed (row-rounds/s, ms a round, peak
-     memory, B1 launches = rounds + 1), the round loop run under
+     memory, the same launches), the round loop run under
      ``torch.cuda.set_sync_debug_mode("error")`` (any sync in it raises),
      and a 250-round call under ``torch.profiler`` (launches a round, idle
      share); (c) 4 rows on the card and on the CPU from the same recorded
@@ -184,7 +193,8 @@ Phases, one line each (any failure raises and exits non-zero):
      ``run_multihost``, ``repro_torch.launch``): (a) fig3 (256 rows x 20 000
      rounds) through ``run_group(round_chunk=2500)``, pipelined and sync on
      the group's generator: equal to the bit, both within 4.5 sd of
-     ``BENCH_fig3.json``, B1 launched once a block (8 a call), the carries
+     ``BENCH_fig3.json``, the fused allocation launched once a block (8 a
+     call), the carries
      updated in place (``donated``); 3 warm runs of each mode and of the sync
      unchunked call timed, and a tapped pipelined call gives 256 x 8 events
      with the same successes; (b) two child processes, one after the other,
@@ -196,7 +206,8 @@ Phases, one line each (any failure raises and exits non-zero):
      summaries equal this process's interleave of the two row shards, and at
      world 1 ``run_multihost`` gives ``run``'s results; (d) the op-cost rows
      of the three pool-path entry points (``launch.hlo_cost``), counted on
-     the card, B1's bytes and operations included.
+     the card, the bytes and operations of B1's DP included (each launch of
+     B1 or of the fused allocation).
   15. the rest of the dense family served at full width, each as phase 10
      serves qwen3 (``serve_config``: flash prefill, greedy decode, bf16,
      seeded random weights): ``llama3_2_3b`` (28 layers, GQA 24 over 8) and
@@ -324,6 +335,9 @@ KERNELS = {   # wrapper: (source, TPU kernel it replaces)
                              "src/repro/kernels/poisson_binomial/kernel.py:147"),
     "success_tails_cuda": (CSRC + "poisson_binomial.cu",
                            "src/repro/kernels/poisson_binomial/kernel.py:117"),
+    "allocate_masked_cuda": (CSRC + "poisson_binomial.cu",
+                             "none (the pairwise rank, B1 and argmax composed in XLA, "
+                             "src/repro/core/lea.py:292)"),
     "matmul_gf_cuda": (CSRC + "gf_matmul.cu", "src/repro/kernels/gf/kernel.py:62"),
     "bmm_gf_cuda": (CSRC + "gf_matmul.cu", "src/repro/kernels/gf/kernel.py:62"),
     "encode_matrix_cuda": (CSRC + "lagrange_encode.cu",
@@ -503,6 +517,76 @@ def check_kernels(kernel_mod, ref) -> dict:
         del probs, w, out, want
         torch.cuda.empty_cache()
     return record
+
+
+def check_allocate() -> dict:
+    """Phase 2: the fused allocation against the composition it replaces
+    (stable sort, B1, argmax) at one fig3 block, (2, 1 024, 2 330, 15) of a
+    (2, 1 024, 4 660, 15) tensor with the engine's (1, B, 1, .) pool
+    (K* 99, loads (10, 3), full mask): loads, i* and feasible bit-equal, one
+    launch and no sort kernel under it; timed as kernel (thresholds given),
+    through ``allocate_masked`` and as the composition, against the bytes
+    it needs (p read, loads written, i* written)."""
+    from repro_torch.core import lea
+    from repro_torch.kernels.poisson_binomial import kernel as kernel_mod
+
+    s, b, rounds, m, n = 2, 1024, 4660, 2330, 15
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(33)
+    counts = torch.randint(0, 12, (2, s, b, rounds, n), generator=gen, device="cuda")
+    full = (counts[0] + 1).float() / (counts[0] + counts[1] + 2).float()
+    del counts
+    full[:, :, ::4] = 0.5
+    p = full[:, :, rounds - m:]
+    i32 = lambda v: torch.full((1, b, 1), v, dtype=torch.int32, device="cuda")
+    pool = lea.PoolLoad(kstar=i32(99), ell_g=i32(10), ell_b=i32(3),
+                        mask=torch.ones((1, b, 1, n), dtype=torch.bool, device="cuda"))
+    n_valid = pool.mask.to(torch.int32).sum(dim=-1)
+    w = lea.prefix_thresholds_traced(pool.kstar, pool.ell_g, pool.ell_b, n_valid, n)
+    composed = lambda: lea._allocate_composed(p, pool.mask, n_valid, w, pool.ell_g,
+                                              pool.ell_b)
+    reset_all_launch_counts()
+    loads, i_star, _ = lea.allocate_masked(p, pool)
+    want_loads, want_i = composed()
+    torch.cuda.synchronize()
+    if kernel_mod.launch_counts()["allocate_masked_cuda"] != 1:
+        raise AssertionError(f"allocate_masked: {kernel_mod.launch_counts()}")
+    if not (torch.equal(loads, want_loads) and torch.equal(i_star, want_i)):
+        raise AssertionError(f"allocate_masked_cuda: not bit-equal to the composition, "
+                             f"{int(((loads != want_loads).any(-1) | (i_star != want_i)).sum())}"
+                             f" rows")
+    del loads, i_star, want_loads, want_i
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lea.allocate_masked(p, pool)
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+    fused_names = [k for k in names if "pb_tails_allocate" in k]
+    if len(fused_names) != 1 or any("sort" in k.lower() or "pb_tails_regs" in k
+                                    for k in names):
+        raise AssertionError(f"under allocate_masked: {names}")
+    kernel = lambda: kernel_mod.allocate_masked_cuda(p, pool.mask, w, pool.ell_g, pool.ell_b)
+    ms = time_ms(kernel)
+    route_ms = time_ms(lambda: lea.allocate_masked(p, pool))
+    plain_ms = time_ms(composed, warm=1, runs=3)
+    rows = s * b * m
+    moved = 8 * rows * n + 8 * rows
+    b_ms, b_by = _bound(moved, 0, 1)
+    blocks = 20_000 / m
+    log("kernel", name="allocate_masked_cuda", probs=(s, b, m, n), of_rounds=rounds,
+        pool=tuple(pool.mask.shape), rows=rows, n=n, bit_equal=True, bound_by=b_by,
+        kernels_under_allocate=json.dumps(names),
+        sweep_ms=f"{ms.one * blocks:.4f}", sweep_bound_ms=f"{b_ms * blocks:.4f}",
+        route_sweep_ms=f"{route_ms.one * blocks:.4f}",
+        plain_sweep_ms=f"{plain_ms.one * blocks:.4f}",
+        **timing_fields(b_ms, ms=ms, route_ms=route_ms, plain_ms=plain_ms))
+    del full, p
+    torch.cuda.empty_cache()
+    return {"allocate_masked_cuda": {
+        "max_abs_err": 0.0, **timing_entry(ms=ms, plain_ms=plain_ms), "bound_ms": b_ms,
+        "bound_by": b_by, "kernel_route": "engine", "composition": "sort + B1 + argmax",
+        "composition_ms": plain_ms.one, "shape": [[s, b, m, n], [1, b, 1, 2 * n + 2]]}}
 
 
 def _bound(moved_bytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
@@ -1626,7 +1710,7 @@ def fault_grid(scenarios, seeds: int, device: str):
 
 def faults_grid() -> dict[str, int]:
     """Phase 11a: the packet_erasure grid at the paper's M, 8 seeds a cell,
-    held to ``BENCH_faults.json``; returns B1's launches."""
+    held to ``BENCH_faults.json``; returns the fused allocation's launches."""
     from repro_torch import faults, sweeps
     from repro_torch.kernels import poisson_binomial as pb
     from repro_torch.random import torch_draws
@@ -1639,19 +1723,19 @@ def faults_grid() -> dict[str, int]:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     out, wall = timed(lambda: faults.sweep_faults(torch_draws(11), *args, **geometry))
-    launches = pb.launch_counts()["success_tails_cuda_w"]
+    launches = pb.launch_counts()["allocate_masked_cuda"]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     # one cell alone (its first seed's row), the same geometry
     one_args, _ = fault_grid(scenarios[:1], 1, "cuda")
     reset_all_launch_counts()
     faults.sweep_faults(torch_draws(12), *one_args, **geometry)
     torch.cuda.synchronize()
-    launches_one = pb.launch_counts()["success_tails_cuda_w"]
+    launches_one = pb.launch_counts()["allocate_masked_cuda"]
     # a second, warmed call of the whole grid, timed beside the first
     _, wall_warm = timed(lambda: faults.sweep_faults(torch_draws(11), *args, **geometry))
     if launches < 1 or launches != launches_one:
-        raise AssertionError(f"B1 launched {launches} times for the grid, {launches_one} "
-                             "for one cell")
+        raise AssertionError(f"the allocation launched {launches} times for the grid, "
+                             f"{launches_one} for one cell")
     aon, con, part = (x.cpu().numpy() for x in out)
     if aon.shape != (len(scenarios) * seeds, rounds, 2):
         raise AssertionError(f"outcomes of shape {aon.shape}")
@@ -1692,12 +1776,12 @@ def faults_grid() -> dict[str, int]:
         row_rounds_per_s=f"{len(scenarios) * seeds * rounds / wall:.0f}",
         wall_warm_s=f"{wall_warm:.3f}",
         row_rounds_per_s_warm=f"{len(scenarios) * seeds * rounds / wall_warm:.0f}",
-        peak_memory_gib=f"{peak_gib:.2f}", b1_launches=launches,
-        b1_launches_one_cell=launches_one, conserve_gain_rounds=gain,
+        peak_memory_gib=f"{peak_gib:.2f}", allocation_launches=launches,
+        allocation_launches_one_cell=launches_one, conserve_gain_rounds=gain,
         containment=True, gpu=json.dumps(nvidia_smi_line()))
     log("faults_profile", part="grid",
         **profile_window(lambda: faults.sweep_faults(torch_draws(11), *args, **geometry)))
-    return {"success_tails_cuda_w": launches}
+    return {"allocate_masked_cuda": launches}
 
 
 def faults_agree() -> None:
@@ -2018,10 +2102,11 @@ def serving_bench() -> None:
         reset_all_launch_counts()
         outs[mode], walls[mode] = timed(lambda: serving.sweep_serving(torch_draws(21), *args,
                                                                       **kwargs))
-        launches[mode] = pb.launch_counts()["success_tails_cuda_w"]
-        if launches[mode] != rounds + 1:
-            raise AssertionError(f"{mode}: B1 launched {launches[mode]} times, not "
-                                 f"rounds + 1 = {rounds + 1}")
+        launches[mode] = {k: pb.launch_counts()[k]
+                          for k in ("success_tails_cuda_w", "allocate_masked_cuda")}
+        if launches[mode] != {"success_tails_cuda_w": 1, "allocate_masked_cuda": rounds}:
+            raise AssertionError(f"{mode}: launched {launches[mode]}, not B1 once (the "
+                                 f"admission gate) and the allocation once a round")
         if not conserved(outs[mode]):
             raise AssertionError(f"{mode}: a row does not conserve its requests")
     bench = json.loads((ROOT / "BENCH_serving.json").read_text())
@@ -2057,7 +2142,7 @@ def serving_bench() -> None:
     log("serving_grid", rows=len(scenarios) * seeds, rounds=rounds,
         wall_admit_all_s=f"{walls['admit_all']:.3f}",
         wall_controlled_s=f"{walls['controlled']:.3f}",
-        b1_launches=json.dumps(launches), admission_gain_requests=gain,
+        launches=json.dumps(launches), admission_gain_requests=gain,
         overloaded_rows=int(over.sum()), conservation=True,
         gpu=json.dumps(nvidia_smi_line()))
 
@@ -2080,10 +2165,10 @@ def strict_round_loop():
     return lambda: setattr(engine, "_round_loop", loop)
 
 
-def serving_stream() -> int:
+def serving_stream() -> dict[str, int]:
     """Phase 12b: the same grid at the family's own 2 000 rounds (controlled),
     a first and a warmed call timed, the round loop under the sync check;
-    returns B1's launches in one call."""
+    returns B1's and the fused allocation's launches in one call."""
     from repro_torch import serving, sweeps
     from repro_torch.kernels import poisson_binomial as pb
     from repro_torch.random import torch_draws
@@ -2098,14 +2183,15 @@ def serving_stream() -> int:
         torch.cuda.reset_peak_memory_stats()
         reset_all_launch_counts()
         first, wall = timed(lambda: serving.sweep_serving(torch_draws(22), *args, **kwargs))
-        launches = pb.launch_counts()["success_tails_cuda_w"]
+        launches = {k: pb.launch_counts()[k]
+                    for k in ("success_tails_cuda_w", "allocate_masked_cuda")}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         _, wall_warm = timed(lambda: serving.sweep_serving(torch_draws(22), *args, **kwargs))
     finally:
         undo()
-    if launches != rounds + 1:
-        raise AssertionError(f"B1 launched {launches} times in a call, not rounds + 1 = "
-                             f"{rounds + 1}")
+    if launches != {"success_tails_cuda_w": 1, "allocate_masked_cuda": rounds}:
+        raise AssertionError(f"launched {launches} in a call, not B1 once and the "
+                             f"allocation once a round ({rounds})")
     if not conserved(first):
         raise AssertionError("a row does not conserve its requests")
     window = 250
@@ -2117,7 +2203,7 @@ def serving_stream() -> int:
         row_rounds_per_s=f"{rows * rounds / wall:.0f}", wall_warm_s=f"{wall_warm:.3f}",
         row_rounds_per_s_warm=f"{rows * rounds / wall_warm:.0f}",
         ms_per_round_warm=f"{wall_warm / rounds * 1e3:.4f}",
-        peak_memory_gib=f"{peak_gib:.3f}", b1_launches=launches,
+        peak_memory_gib=f"{peak_gib:.3f}", launches=json.dumps(launches),
         sync_in_round_loop="none (set_sync_debug_mode error)",
         served_on_time=int(first.served_on_time.sum()), arrivals=int(first.arrivals.sum()),
         gpu=json.dumps(nvidia_smi_line()))
@@ -2178,10 +2264,11 @@ def serving_entry_points() -> dict[str, int]:
 def serving_path() -> dict[str, int]:
     """Phase 12: the streaming serving layer at the paper's pool.  The
     counts are set to 0 before each part's own work; returns the launches
-    of one 2 000-round grid call (B1) and of the entry points."""
+    of one 2 000-round grid call (B1, the allocation) and of the entry
+    points."""
     t0 = time.perf_counter()
     serving_bench()
-    launches = {"success_tails_cuda_w": serving_stream()}
+    launches = serving_stream()
     serving_agree()
     for name, count in serving_entry_points().items():
         launches[name] = launches.get(name, 0) + count
@@ -2527,9 +2614,9 @@ def obs_path() -> dict[str, int]:
         obs_provenance(tmp, group, succ)
         obs_cli(tmp)
         obs_counters(launches)
-    if launches.get("success_tails_cuda_w", 0) < 1 or launches.get("bmm_gf_cuda", 0) \
+    if launches.get("allocate_masked_cuda", 0) < 1 or launches.get("bmm_gf_cuda", 0) \
             + launches.get("matmul_gf_cuda", 0) < 1:
-        raise AssertionError(f"phase 13 did not launch B1 and B3: {launches}")
+        raise AssertionError(f"phase 13 did not launch the allocation and B3: {launches}")
     log("obs_path", launches=json.dumps(launches), wall_s=f"{time.perf_counter() - t0:.1f}")
     return launches
 
@@ -2562,11 +2649,11 @@ def fig3_against_bench(results, bench, strategies=("lea", "static", "oracle")) -
 def speed_fig3(bench) -> tuple[int, int]:
     """Phase 14a: fig3 (256 rows x 20 000 rounds) pipelined against the sync
     path at ``round_chunk=2500`` on the group's own generator: equal to the
-    bit, both within 4.5 sd of ``BENCH_fig3.json``, 8 B1 launches a call,
+    bit, both within 4.5 sd of ``BENCH_fig3.json``, 8 allocation launches a call,
     the carries updated in place, the resampler launched in every call; 3
     warm runs of each mode timed beside the sync unchunked call; a
     tapped pipelined call gives 256 x 8 events and the same successes.
-    Returns B1's and the resampler's launches in 14a."""
+    Returns the allocation's and the resampler's launches in 14a."""
     from repro_torch import obs, sweeps
     from repro_torch.kernels.poisson_binomial import kernel as kernel_mod
     from repro_torch.kernels.static_resample import kernel as resample_mod
@@ -2581,7 +2668,7 @@ def speed_fig3(bench) -> tuple[int, int]:
         nonlocal launched, resampled
         reset_all_launch_counts()
         out, wall = timed(lambda: sweeps.run_group(group, **kw))
-        n = kernel_mod.launch_counts()["success_tails_cuda_w"]
+        n = kernel_mod.launch_counts()["allocate_masked_cuda"]
         launched += n
         tries = resample_mod.launch_counts()["static_resample_cuda"]
         resampled += tries
@@ -2596,8 +2683,8 @@ def speed_fig3(bench) -> tuple[int, int]:
         raise AssertionError(f"fig3: pipelined differs from sync in "
                              f"{int((sync != piped).any(axis=-1).sum())} rounds")
     if n_piped != blocks or n_sync != blocks:
-        raise AssertionError(f"fig3: B1 launched {n_piped} (pipelined) and {n_sync} (sync) "
-                             f"times, not once a block ({blocks})")
+        raise AssertionError(f"fig3: the allocation launched {n_piped} (pipelined) and "
+                             f"{n_sync} (sync) times, not once a block ({blocks})")
     if stats["donated"] is not True or stats["blocks"] != blocks:
         raise AssertionError(f"fig3: pipeline stats {stats}")
     max_z = {mode: {s: round(max(line[s][2] for line in lines), 2) for s in lines[0]}
@@ -2624,7 +2711,7 @@ def speed_fig3(bench) -> tuple[int, int]:
             raise AssertionError(f"fig3 tapped pipeline row {r}: last event {e}")
     med = {mode: statistics.median(w) for mode, w in walls.items()}
     log("speed_fig3", rows=rows, rounds=rounds, round_chunk=SPEED_CHUNK, blocks=blocks,
-        bit_equal=True, b1_launches_per_call=n_piped, donated=True,
+        bit_equal=True, allocation_launches_per_call=n_piped, donated=True,
         max_z=json.dumps(max_z),
         **{f"{m}_s": f"{v:.4f}" for m, v in med.items()},
         **{f"{m}_row_rounds_per_s": f"{rows * rounds / v:.0f}" for m, v in med.items()},
@@ -2774,9 +2861,9 @@ def speed_multihost(tmp: Path) -> None:
 
 def speed_costs() -> None:
     """Phase 14d: the cost rows of the three pool-path entry points, counted
-    on the card over their PyTorch operations and each B1 launch's own
-    bytes and operations; every entry point must launch B1, and the
-    counter must see each launch."""
+    on the card over their PyTorch operations and each launch's own bytes
+    and operations of B1's DP (alone or in the fused allocation); every
+    entry point must launch one, and the counter must see each launch."""
     from repro_torch.kernels.poisson_binomial import kernel as kernel_mod
     from repro_torch.launch import hlo_cost
 
@@ -2798,9 +2885,9 @@ def speed_costs() -> None:
 
 
 def speed_path(bench) -> dict[str, int]:
-    """Phase 14: the speed layer; returns B1's and the resampler's launches
-    in 14a, the phase's main path (counts set to 0 before each call there
-    and summed)."""
+    """Phase 14: the speed layer; returns the allocation's and the
+    resampler's launches in 14a, the phase's main path (counts set to 0
+    before each call there and summed)."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -2809,9 +2896,9 @@ def speed_path(bench) -> dict[str, int]:
         speed_cache(Path(tmp))
         speed_multihost(Path(tmp))
     speed_costs()
-    log("speed_path", b1_launches=launched, resampler_launches=resampled,
+    log("speed_path", allocation_launches=launched, resampler_launches=resampled,
         wall_s=f"{time.perf_counter() - t0:.1f}")
-    return {"success_tails_cuda_w": launched, "static_resample_cuda": resampled}
+    return {"allocate_masked_cuda": launched, "static_resample_cuda": resampled}
 
 
 # -- phase 19: the multi-card paths, as ranks on the one card ---------------------
@@ -3610,6 +3697,7 @@ def main() -> int:
                          for d in fa_kernel.WGMMA_HEAD_DIMS})
 
     record = check_kernels(kernel_mod, success_tails_ref)
+    record.update(check_allocate())
     record.update(check_static_resample())
     phase_done('1-2 build, B1/B2')
 
@@ -3624,9 +3712,10 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches_main = {**kernel_mod.launch_counts(), **resample_mod.launch_counts()}
-    if launches_main["success_tails_cuda_w"] < 1 or launches_main["static_resample_cuda"] < 1:
-        raise AssertionError(f"main path never launched the per-row kernel or the "
-                             f"resampler: {launches_main}")
+    if launches_main["allocate_masked_cuda"] < 1 or launches_main["static_resample_cuda"] < 1 \
+            or launches_main["success_tails_cuda_w"] != 0:
+        raise AssertionError(f"main path did not allocate in the fused kernel alone or "
+                             f"never launched the resampler: {launches_main}")
     rounds = results[0].scenario.rounds
     rows = sum(r.seeds for r in results)
     for r, line in zip(results, fig3_against_bench(results, bench, strategies)):
@@ -3750,9 +3839,11 @@ def main() -> int:
                  "compare": launches_static["static_resample_cuda"]}
     launches = {"success_tails_cuda_w": launches_main["success_tails_cuda_w"],
                 "success_tails_cuda": launches_static["success_tails_cuda"],
+                "allocate_masked_cuda": launches_main["allocate_masked_cuda"],
                 **launches_coded, "flash_attention_cuda": launches_lm,
                 "static_resample_cuda": resampled["fig3"]}
     by_path = {"fig3": {"success_tails_cuda_w": launches_main["success_tails_cuda_w"],
+                        "allocate_masked_cuda": launches_main["allocate_masked_cuda"],
                         "static_resample_cuda": resampled["fig3"]},
                "compare": {"success_tails_cuda": launches_static["success_tails_cuda"],
                            "static_resample_cuda": resampled["compare"]},

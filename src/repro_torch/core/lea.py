@@ -15,6 +15,13 @@ Ranks: ties are the common case (LEA predicts 0.5 for every worker at round
 0), and they break by lower worker index first, as in the JAX package — a
 stable descending sort gives exactly that order, the sorted values are an
 exact gather, and ``torch.argmax`` returns the first maximum.
+
+:func:`allocate_masked` on a CUDA tensor of at most
+:data:`~repro_torch.kernels.poisson_binomial.kernel.ALLOCATE_MAX_N` workers
+is one launch of the fused allocation kernel (ranks by the pairwise count,
+B1's DP, the first maximum and the loads, bit-equal to the composition);
+CPU tensors and wider pools take the composition, as the JAX package
+switches from the pairwise rank to sorts above 64 workers.
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.poisson_binomial import success_tails
+from repro_torch.kernels.dispatch import KERNEL, route
+from repro_torch.kernels.poisson_binomial import (ALLOCATE_MAX_N, allocate_masked_cuda,
+                                                  count_allocate, success_tails)
 
 
 class EstimatorState(NamedTuple):
@@ -239,26 +248,45 @@ def allocate_masked(
     where no prefix of the valid pool can reach K* — explicit, never a
     silent failure.  On a full-width pool every masking step preserves
     values, so the result equals :func:`allocate` on the same inputs.
+
+    The route follows the tensor and the width: a CUDA tensor of n <=
+    ``ALLOCATE_MAX_N`` workers takes the fused kernel, every other the
+    composition; both add their CUDA rows to ``allocate_engagement()``.
     """
     mask = pool.mask
     n = p_good.shape[-1]
     if mask.shape[-1] != n:
         raise ValueError(f"mask width {mask.shape[-1]} != pool width {n}")
     n_valid = mask.to(torch.int32).sum(dim=-1)
+    w = prefix_thresholds_traced(pool.kstar, pool.ell_g, pool.ell_b, n_valid, n)
+    on_card = route(p_good) == KERNEL
+    fused = on_card and 1 <= n <= ALLOCATE_MAX_N
+    if fused:
+        p_all = torch.broadcast_tensors(p_good, w)[0]     # a view
+        loads, i_star = allocate_masked_cuda(p_all, mask, w, pool.ell_g, pool.ell_b)
+    else:
+        loads, i_star = _allocate_composed(p_good, mask, n_valid, w, pool.ell_g, pool.ell_b)
+    if on_card:
+        count_allocate(fused, i_star.numel())
+    i_tilde = torch.arange(1, n + 1, device=p_good.device)
+    feasible = torch.any((w <= i_tilde) & (i_tilde <= n_valid[..., None]), dim=-1)
+    return loads, i_star, torch.broadcast_to(feasible, i_star.shape)
+
+
+def _allocate_composed(p_good, mask, n_valid, w, ell_g, ell_b):
+    """:func:`allocate_masked`'s ``(loads, i_star)`` as a composition: a
+    stable sort, B1 and ``argmax`` (CPU tensors, and pools wider than the
+    fused kernel's)."""
+    n = p_good.shape[-1]
     p_eff = torch.where(mask, p_good, -1.0)
     order, ranks = _ranks_descending(p_eff)
     p_sorted = _take_by_rank(p_eff, order)
     pos = torch.arange(n, device=p_good.device)
     p_dp = torch.where(pos < n_valid[..., None], p_sorted, 0.0)
-    w = prefix_thresholds_traced(pool.kstar, pool.ell_g, pool.ell_b, n_valid, n)
     probs = success_tails(p_dp, w)
     i_star = torch.argmax(probs, dim=-1) + 1
-    i_tilde = pos + 1
-    feasible = torch.any((w <= i_tilde) & (i_tilde <= n_valid[..., None]), dim=-1)
-    loads = torch.where(ranks < i_star[..., None], pool.ell_g[..., None],
-                        pool.ell_b[..., None])
-    loads = torch.where(mask, loads, 0).to(torch.int32)
-    return loads, i_star, torch.broadcast_to(feasible, i_star.shape)
+    loads = torch.where(ranks < i_star[..., None], ell_g[..., None], ell_b[..., None])
+    return torch.where(mask, loads, 0).to(torch.int32), i_star
 
 
 def allocate_queue(

@@ -32,10 +32,10 @@
 // unrolls the worker loop at trace time. Here a block owns THREADS
 // consecutive rows, one a thread:
 //   1. the block's rows are one contiguous range of THREADS * n floats: the
-//      block loads it with 16-byte vector loads (4-byte loads where the
-//      pointer is not 16-byte aligned, and for the ragged tail) into shared
-//      memory, each row at an odd stride ns = n | 1, so that the DP's reads,
-//      a row a thread, hit 32 different banks;
+//      block loads it with 16-byte vector loads (4-byte loads up to the first
+//      16-byte boundary and for the ragged tail) into shared memory, each
+//      row at an odd stride ns = n | 1, so that the DP's reads, a row a
+//      thread, hit 32 different banks;
 //   2. the block's distinct threshold rows (row / rep, at most THREADS of
 //      them) are loaded into shared memory once;
 //   3. each thread runs its row's DP with the pmf over counts 0..n in
@@ -46,7 +46,8 @@
 //        pmf[c] = fma(pmf[c-1], p, pmf[c] * (1 - p))
 //      then sums the tail over ascending counts, and writes the tail over
 //      p[i] in shared memory;
-//   4. the block stores its tails with 16-byte vector stores.
+//   4. the block stores its tails with 16-byte vector stores (row_tails is
+//      step 3's DP, shared with the allocation kernel below).
 // The intrinsics (__fmaf_rn, __fmul_rn, __fadd_rn) pin the exact sequence of
 // roundings that XLA produces for the JAX package's reference DP on the CPU
 // and that the port's plain PyTorch version (ref.py) repeats, so kernel and
@@ -55,6 +56,40 @@
 // (strided by the block size to avoid bank conflicts) with the same
 // arithmetic and the same threshold view, reading its row directly; it
 // serves any n whose pmf fits in 48 KB for one thread.
+//
+// The allocation kernel, pb_tails_allocate<NMAX> (entry pb_allocate, wrapper
+// allocate_masked_cuda), is the whole of the port's allocate_masked
+// (src/repro_torch/core/lea.py) for n <= 64 in one launch. It replaces no TPU
+// kernel: the JAX package composes the pairwise rank, B1 and argmax in XLA
+// (src/repro/core/lea.py, allocate_masked). Per row of n float32 p (any
+// order) and its pool row [w_0..w_{n-1}, mask_0..mask_{n-1}, ell_g, ell_b]
+// (int32; w the prefix thresholds of the valid pool):
+//   p'      = mask ? p : -1                   (masked workers last)
+//   rank_i  = #{j : p'_j > p'_i} + #{j < i : p'_j == p'_i}
+//   s[r]    = p' of rank r, 0 for r >= n_valid (= sum of mask)
+//   i*      = 1 + the first maximum of B1's tails of s under w
+//   loads_i = mask_i ? (rank_i < i* ? ell_g : ell_b) : 0
+// which equals the composition (stable descending sort, gather, B1, argmax)
+// to the bit on any non-NaN p: the rank is the sorted order, and the DP is
+// row_tails, B1's own code. Bound: it reads p and writes the loads (8 bytes
+// an element) and writes i* (8 bytes a row); the pool rows are a few per
+// block. On the fig3 sweep, 2 x 1 024 x 20 000 rows of 15, that is 5.24 GB,
+// 1.56 ms; the ranks (n(n-1)/2 compares a row) and the DP (~2n^2 flop) stay
+// under it at n = 15. Design: B1's blocks of THREADS rows, one a thread.
+//   (a) the rows' offsets through a second view, so a slice of a larger
+//       tensor (the engine's round block) or a broadcast is read as it lies;
+//       a block whose rows are one contiguous range takes load_rows (16-byte
+//       loads), else 4-byte loads row by row;
+//   (b) the block's distinct pool rows, once each, into shared memory (at
+//       most (THREADS - 1) / rep + 2 of them, which sizes the allocation);
+//   (c) each thread demotes and ranks its row in registers (pe, rank: every
+//       index a compile-time constant), scatters it into rank order in
+//       shared memory, runs row_tails with an emit that keeps the first
+//       maximum (strict >, as torch.argmax), and writes its loads over its
+//       p in shared memory from the ranks it kept;
+//   (d) the block stores the int32 loads with 16-byte stores, and each
+//       thread its int64 i*.
+// Nothing of p's size is written but the loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,58 +118,67 @@ __device__ __forceinline__ long long row_offset(const ThresholdView& g, long lon
   return off;
 }
 
-// elems floats from src (a block's rows, contiguous) into dst, element e at
-// dst[(e / n) * ns + e % n]; 16-byte loads where `vec`.
-template <int THREADS>
-__device__ __forceinline__ void load_rows(const float* __restrict__ src, int elems,
-                                          float* dst, int n, int ns, bool vec) {
+// elems values from src (a block's rows, contiguous) into dst, element e at
+// dst[(e / n) * ns + e % n]: 4-byte accesses up to the first 16-byte
+// boundary of src, 16-byte loads from there, 4-byte accesses for the rest.
+template <int THREADS, typename T>
+__device__ __forceinline__ void load_rows(const T* __restrict__ src, int elems, T* dst,
+                                          int n, int ns) {
+  static_assert(sizeof(T) == 4, "rows of 4-byte values");
   const int t = threadIdx.x;
-  int done = 0;
-  if (vec) {
-    const int quads = elems / 4;
-    const float4* src4 = reinterpret_cast<const float4*>(src);
-#pragma unroll 4
-    for (int f = t; f < quads; f += THREADS) {
-      const float4 v = src4[f];
-      int row = (4 * f) / n, col = 4 * f - row * n;
-      const float parts[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        dst[row * ns + col] = parts[u];
-        if (++col == n) { col = 0; ++row; }
-      }
-    }
-    done = 4 * quads;
+  int head = (int)(((16 - ((uintptr_t)src & 15)) & 15) / 4);
+  if (head > elems) head = elems;
+  for (int e = t; e < head; e += THREADS) {
+    const int row = e / n;
+    dst[row * ns + e - row * n] = src[e];
   }
-  for (int e = done + t; e < elems; e += THREADS) {
+  const int quads = (elems - head) / 4;
+  const float4* src4 = reinterpret_cast<const float4*>(src + head);
+#pragma unroll 4
+  for (int f = t; f < quads; f += THREADS) {
+    const float4 v = src4[f];
+    const int e = head + 4 * f;
+    int row = e / n, col = e - row * n;
+    const float parts[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      reinterpret_cast<float*>(dst)[row * ns + col] = parts[u];
+      if (++col == n) { col = 0; ++row; }
+    }
+  }
+  for (int e = head + 4 * quads + t; e < elems; e += THREADS) {
     const int row = e / n;
     dst[row * ns + e - row * n] = src[e];
   }
 }
 
-// The inverse of load_rows: elems floats of src (rows at stride ns) to dst.
-template <int THREADS>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst, int elems,
-                                           const float* src, int n, int ns, bool vec) {
+// The inverse of load_rows: elems values of src (rows at stride ns) to dst.
+template <int THREADS, typename T>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst, int elems, const T* src,
+                                           int n, int ns) {
+  static_assert(sizeof(T) == 4, "rows of 4-byte values");
   const int t = threadIdx.x;
-  int done = 0;
-  if (vec) {
-    const int quads = elems / 4;
-    float4* dst4 = reinterpret_cast<float4*>(dst);
-#pragma unroll 4
-    for (int f = t; f < quads; f += THREADS) {
-      int row = (4 * f) / n, col = 4 * f - row * n;
-      float parts[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        parts[u] = src[row * ns + col];
-        if (++col == n) { col = 0; ++row; }
-      }
-      dst4[f] = make_float4(parts[0], parts[1], parts[2], parts[3]);
-    }
-    done = 4 * quads;
+  int head = (int)(((16 - ((uintptr_t)dst & 15)) & 15) / 4);
+  if (head > elems) head = elems;
+  for (int e = t; e < head; e += THREADS) {
+    const int row = e / n;
+    dst[e] = src[row * ns + e - row * n];
   }
-  for (int e = done + t; e < elems; e += THREADS) {
+  const int quads = (elems - head) / 4;
+  float4* dst4 = reinterpret_cast<float4*>(dst + head);
+#pragma unroll 4
+  for (int f = t; f < quads; f += THREADS) {
+    const int e = head + 4 * f;
+    int row = e / n, col = e - row * n;
+    float parts[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      parts[u] = reinterpret_cast<const float*>(src)[row * ns + col];
+      if (++col == n) { col = 0; ++row; }
+    }
+    dst4[f] = make_float4(parts[0], parts[1], parts[2], parts[3]);
+  }
+  for (int e = head + 4 * quads + t; e < elems; e += THREADS) {
     const int row = e / n;
     dst[e] = src[row * ns + e - row * n];
   }
@@ -152,11 +196,43 @@ size_t regs_smem_bytes(int n) {
          (size_t)threads_for<NMAX>() * sizeof(long long);
 }
 
+// One row's DP, B1's arithmetic: p_row[0..n) sorted descending, w_row[0..n)
+// its thresholds; emit(i, tail) receives the tail of prefix i + 1 after step
+// i, which has read p_row[i] and w_row[i] and nothing after them.
+template <int NMAX, typename Emit>
+__device__ __forceinline__ void row_tails(const float* p_row, const int* w_row, int n,
+                                          Emit emit) {
+  float pmf[NMAX + 1];
+#pragma unroll
+  for (int c = 0; c <= NMAX; ++c) pmf[c] = 0.f;
+  pmf[0] = 1.f;
+
+#pragma unroll
+  for (int i = 0; i < NMAX; ++i) {
+    if (i < n) {
+      const float p = p_row[i];
+      const float q = __fsub_rn(1.f, p);
+#pragma unroll
+      for (int c = i + 1; c >= 1; --c) {
+        pmf[c] = __fmaf_rn(pmf[c - 1], p, __fmul_rn(pmf[c], q));
+      }
+      pmf[0] = __fmul_rn(pmf[0], q);
+      const int wi = w_row[i];
+      const int lo = wi > 0 ? wi : 0;
+      float acc = 0.f;
+#pragma unroll
+      for (int c = 0; c <= i + 1; ++c) {
+        if (c >= lo) acc = __fadd_rn(acc, pmf[c]);
+      }
+      emit(i, (wi > i + 1) ? 0.f : acc);
+    }
+  }
+}
+
 template <int NMAX>
 __global__ void __launch_bounds__(threads_for<NMAX>())
 pb_tails_regs(const float* __restrict__ probs, const int* __restrict__ w,
-              float* __restrict__ out, long long rows, int n, ThresholdView g,
-              bool vec) {
+              float* __restrict__ out, long long rows, int n, ThresholdView g) {
   constexpr int THREADS = threads_for<NMAX>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   long long* w_off = reinterpret_cast<long long*>(smem_raw);   // [THREADS]
@@ -170,7 +246,7 @@ pb_tails_regs(const float* __restrict__ probs, const int* __restrict__ w,
   const int elems = nrows * n;
 
   // 1. the block's probabilities
-  load_rows<THREADS>(probs + row0 * n, elems, sp, n, ns, vec);
+  load_rows<THREADS>(probs + row0 * n, elems, sp, n, ns);
   // 2. its distinct threshold rows, once each
   const long long u0 = row0 / g.rep;
   const int n_u = (int)((row0 + nrows - 1) / g.rep - u0 + 1);
@@ -183,39 +259,130 @@ pb_tails_regs(const float* __restrict__ probs, const int* __restrict__ w,
   }
   __syncthreads();
 
-  // 3. one row a thread
+  // 3. one row a thread; p[i] is read before its slot takes the tail
   if (t < nrows) {
     float* p_row = sp + t * ns;
-    const int* w_row = sw + (int)((row0 + t) / g.rep - u0) * ns;
-    float pmf[NMAX + 1];
-#pragma unroll
-    for (int c = 0; c <= NMAX; ++c) pmf[c] = 0.f;
-    pmf[0] = 1.f;
-
-#pragma unroll
-    for (int i = 0; i < NMAX; ++i) {
-      if (i < n) {
-        const float p = p_row[i];
-        const float q = __fsub_rn(1.f, p);
-#pragma unroll
-        for (int c = i + 1; c >= 1; --c) {
-          pmf[c] = __fmaf_rn(pmf[c - 1], p, __fmul_rn(pmf[c], q));
-        }
-        pmf[0] = __fmul_rn(pmf[0], q);
-        const int wi = w_row[i];
-        const int lo = wi > 0 ? wi : 0;
-        float acc = 0.f;
-#pragma unroll
-        for (int c = 0; c <= i + 1; ++c) {
-          if (c >= lo) acc = __fadd_rn(acc, pmf[c]);
-        }
-        p_row[i] = (wi > i + 1) ? 0.f : acc;   // p[i] is read: its slot takes the tail
-      }
-    }
+    row_tails<NMAX>(p_row, sw + (int)((row0 + t) / g.rep - u0) * ns, n,
+                    [&](int i, float tail) { p_row[i] = tail; });
   }
   __syncthreads();
   // 4. the block's tails
-  store_rows<THREADS>(out + row0 * n, elems, sp, n, ns, vec);
+  store_rows<THREADS>(out + row0 * n, elems, sp, n, ns);
+}
+
+// Shared memory of pb_tails_allocate<NMAX>: the rows' offsets, the pool
+// rows' offsets, the rows (p, then the loads), the rows in rank order and
+// the at most n_u pool rows of 2n + 2 values.
+template <int NMAX>
+size_t allocate_smem_bytes(int n, int n_u) {
+  constexpr int THREADS = threads_for<NMAX>();
+  const int ns = n | 1, ks = (2 * n + 2) | 1;
+  return (size_t)2 * THREADS * sizeof(long long) +
+         (size_t)2 * THREADS * ns * sizeof(float) + (size_t)n_u * ks * sizeof(int);
+}
+
+// The whole of allocate_masked for THREADS consecutive rows, one a thread.
+// pool: the pool rows, each [w_0 .. w_{n-1}, mask_0 .. mask_{n-1}, ell_g,
+// ell_b], read through pv; probs: row r's n values at row_offset(pg, r).
+template <int NMAX>
+__global__ void __launch_bounds__(threads_for<NMAX>())
+pb_tails_allocate(const float* __restrict__ probs, const int* __restrict__ pool,
+                  int* __restrict__ loads, long long* __restrict__ i_star,
+                  long long rows, int n, ThresholdView pg, ThresholdView pv) {
+  constexpr int THREADS = threads_for<NMAX>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  long long* p_off = reinterpret_cast<long long*>(smem_raw);   // [THREADS]
+  long long* v_off = p_off + THREADS;                          // [THREADS]
+  const int ns = n | 1, k = 2 * n + 2, ks = k | 1;
+  float* sp = reinterpret_cast<float*>(v_off + THREADS);       // [THREADS][ns]
+  float* ss = sp + THREADS * ns;                               // [THREADS][ns]
+  int* sv = reinterpret_cast<int*>(ss + THREADS * ns);         // [n_u][ks]
+  const int t = threadIdx.x;
+  const long long row0 = (long long)blockIdx.x * THREADS;
+  const long long left = rows - row0;
+  const int nrows = left < THREADS ? (int)left : THREADS;
+  const int elems = nrows * n;
+  const long long u0 = row0 / pv.rep;
+  const int n_u = (int)((row0 + nrows - 1) / pv.rep - u0 + 1);
+
+  // (a) where the rows and the distinct pool rows lie
+  if (t < nrows) p_off[t] = row_offset(pg, row0 + t);
+  if (t < n_u) v_off[t] = row_offset(pv, (u0 + t) * pv.rep);
+  __syncthreads();
+  // the block's rows: one contiguous range (16-byte loads), else by row
+  if (__syncthreads_and(t >= nrows || p_off[t] == p_off[0] + (long long)t * n)) {
+    load_rows<THREADS>(probs + p_off[0], elems, sp, n, ns);
+  } else {
+    for (int e = t; e < elems; e += THREADS) {
+      const int row = e / n, col = e - row * n;
+      sp[row * ns + col] = probs[p_off[row] + col];
+    }
+  }
+  // (b) the pool rows, once each
+  for (int idx = t; idx < n_u * k; idx += THREADS) {
+    const int j = idx / k, i = idx - j * k;
+    sv[j * ks + i] = pool[v_off[j] + i * pv.last_stride];
+  }
+  __syncthreads();
+
+  // (c) one row a thread
+  if (t < nrows) {
+    float* p_row = sp + t * ns;
+    float* s_row = ss + t * ns;
+    const int* v_row = sv + (int)((row0 + t) / pv.rep - u0) * ks;
+    const int* m_row = v_row + n;
+    // masked workers demoted below every probability, then ranked by the
+    // pairwise count: rank_i = #{j : p_j > p_i} + #{j < i : p_j == p_i},
+    // a stable descending sort's order (ties to the lower index)
+    float pe[NMAX];
+    int rank[NMAX];
+    int n_valid = 0;
+#pragma unroll
+    for (int i = 0; i < NMAX; ++i) {
+      pe[i] = 0.f;
+      rank[i] = 0;
+      if (i < n) {
+        const bool on = m_row[i] != 0;
+        pe[i] = on ? p_row[i] : -1.f;
+        n_valid += on;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NMAX; ++i) {
+#pragma unroll
+      for (int j = i + 1; j < NMAX; ++j) {
+        if (j < n) {
+          const bool after = pe[j] > pe[i];   // j before i; else i before j
+          rank[i] += after;
+          rank[j] += !after;
+        }
+      }
+    }
+    // the values in rank order, the slots past the valid pool p = 0
+#pragma unroll
+    for (int i = 0; i < NMAX; ++i) {
+      if (i < n) s_row[rank[i]] = rank[i] < n_valid ? pe[i] : 0.f;
+    }
+    // B1's DP; i* - 1 the first maximum over ascending prefixes
+    float best = 0.f;
+    int arg = 0;
+    row_tails<NMAX>(s_row, v_row, n, [&](int i, float tail) {
+      if (i == 0 || tail > best) {
+        best = tail;
+        arg = i;
+      }
+    });
+    const int ell_g = v_row[2 * n], ell_b = v_row[2 * n + 1];
+    int* l_row = reinterpret_cast<int*>(p_row);
+#pragma unroll
+    for (int i = 0; i < NMAX; ++i) {
+      if (i < n) l_row[i] = m_row[i] == 0 ? 0 : (rank[i] <= arg ? ell_g : ell_b);
+    }
+    i_star[row0 + t] = arg + 1;
+  }
+  __syncthreads();
+  // (d) the block's loads
+  store_rows<THREADS>(loads + row0 * n, elems, reinterpret_cast<const int*>(sp), n, ns);
 }
 
 // n > 64: the same DP with the pmf of thread t at smem[c * blockDim.x + t].
@@ -254,11 +421,47 @@ __global__ void pb_tails_smem(const float* __restrict__ probs,
 
 template <int NMAX>
 void launch_regs(const float* probs, const int* w, float* out, long long rows,
-                 int n, const ThresholdView& g, bool vec, cudaStream_t stream) {
+                 int n, const ThresholdView& g, cudaStream_t stream) {
   constexpr int THREADS = threads_for<NMAX>();
   const long long blocks = (rows + THREADS - 1) / THREADS;
   pb_tails_regs<NMAX><<<(unsigned)blocks, THREADS, regs_smem_bytes<NMAX>(n), stream>>>(
-      probs, w, out, rows, n, g, vec);
+      probs, w, out, rows, n, g);
+}
+
+template <int NMAX>
+int launch_allocate(const float* probs, const int* pool, int* loads, long long* i_star,
+                    long long rows, int n, const ThresholdView& pg,
+                    const ThresholdView& pv, cudaStream_t stream) {
+  constexpr int THREADS = threads_for<NMAX>();
+  // the most pool rows a block of THREADS consecutive rows touches
+  const long long most = (THREADS - 1) / pv.rep + 2;
+  const size_t smem = allocate_smem_bytes<NMAX>(n, most < THREADS ? (int)most : THREADS);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pb_tails_allocate<NMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long blocks = (rows + THREADS - 1) / THREADS;
+  pb_tails_allocate<NMAX><<<(unsigned)blocks, THREADS, smem, stream>>>(
+      probs, pool, loads, i_star, rows, n, pg, pv);
+  return 0;
+}
+
+// A ThresholdView from its int64 words (see pb_success_tails); false if they
+// are not one.
+bool read_view(const long long* view, ThresholdView* g) {
+  *g = ThresholdView{};
+  g->rep = view[0];
+  g->dims = (int)view[1];
+  if (g->rep < 1 || g->dims < 0 || g->dims > kMaxLead) return false;
+  for (int d = 0; d < g->dims; ++d) {
+    g->div[d] = view[2 + 3 * d];
+    g->size[d] = view[3 + 3 * d];
+    g->stride[d] = view[4 + 3 * d];
+    if (g->div[d] < 1 || g->size[d] < 1) return false;
+  }
+  g->last_stride = view[2 + 3 * g->dims];
+  return true;
 }
 
 }  // namespace
@@ -276,24 +479,14 @@ extern "C" int pb_success_tails(const float* probs, const int* w, float* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || n <= 0) return 0;
   if (n > pb_max_n()) return (int)cudaErrorInvalidValue;
-  ThresholdView g = {};
-  g.rep = view[0];
-  g.dims = (int)view[1];
-  if (g.rep < 1 || g.dims < 0 || g.dims > kMaxLead) return (int)cudaErrorInvalidValue;
-  for (int d = 0; d < g.dims; ++d) {
-    g.div[d] = view[2 + 3 * d];
-    g.size[d] = view[3 + 3 * d];
-    g.stride[d] = view[4 + 3 * d];
-    if (g.div[d] < 1 || g.size[d] < 1) return (int)cudaErrorInvalidValue;
-  }
-  g.last_stride = view[2 + 3 * g.dims];
-  const bool vec = ((uintptr_t)probs % 16 == 0) && ((uintptr_t)out % 16 == 0);
+  ThresholdView g;
+  if (!read_view(view, &g)) return (int)cudaErrorInvalidValue;
   if (n <= 16) {
-    launch_regs<16>(probs, w, out, rows, n, g, vec, s);
+    launch_regs<16>(probs, w, out, rows, n, g, s);
   } else if (n <= 32) {
-    launch_regs<32>(probs, w, out, rows, n, g, vec, s);
+    launch_regs<32>(probs, w, out, rows, n, g, s);
   } else if (n <= 64) {
-    launch_regs<64>(probs, w, out, rows, n, g, vec, s);
+    launch_regs<64>(probs, w, out, rows, n, g, s);
   } else {
     const size_t per_thread = (size_t)(n + 1) * sizeof(float);
     int threads = (int)((48 * 1024) / per_thread);
@@ -304,4 +497,30 @@ extern "C" int pb_success_tails(const float* probs, const int* w, float* out,
         probs, w, out, rows, n, g);
   }
   return (int)cudaGetLastError();
+}
+
+// The fused allocation: loads (rows, n) int32 and i_star (rows,) int64, both
+// contiguous; probs' rows through probs_view (last_stride 1 where n > 1),
+// the pool rows of 2n + 2 int32 values through pool_view, both in
+// pb_success_tails' words.
+extern "C" int pb_allocate(const float* probs, const int* pool, int* loads,
+                           long long* i_star, long long rows, int n,
+                           const long long* probs_view, const long long* pool_view,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || n <= 0) return 0;
+  if (n > 64) return (int)cudaErrorInvalidValue;   // the widest instance
+  ThresholdView pg, pv;
+  if (!read_view(probs_view, &pg) || !read_view(pool_view, &pv) ||
+      (n > 1 && pg.last_stride != 1))
+    return (int)cudaErrorInvalidValue;
+  int err;
+  if (n <= 16) {
+    err = launch_allocate<16>(probs, pool, loads, i_star, rows, n, pg, pv, s);
+  } else if (n <= 32) {
+    err = launch_allocate<32>(probs, pool, loads, i_star, rows, n, pg, pv, s);
+  } else {
+    err = launch_allocate<64>(probs, pool, loads, i_star, rows, n, pg, pv, s);
+  }
+  return err ? err : (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 """CUDA wrappers of the Poisson-binomial prefix-tail kernel (sm_90a).
 
-Two entry points, as in the JAX package, over one CUDA source
-(``kernels/csrc/poisson_binomial.cu``, which states the design and bound):
+Two entry points, as in the JAX package, and the fused allocation, over one
+CUDA source (``kernels/csrc/poisson_binomial.cu``, which states the designs
+and bounds):
 
   * :func:`success_tails_cuda`   — one static threshold tuple shared by all
     rows (replaces ``success_tails_pallas``); the tuple is uploaded to the
@@ -10,6 +11,11 @@ Two entry points, as in the JAX package, over one CUDA source
     probabilities, per row or shared along any axes (replaces
     ``success_tails_pallas_w``), read as they lie: stride 0 on broadcast
     axes, nothing materialised.
+
+  * :func:`allocate_masked_cuda` — the whole of ``core.lea.allocate_masked``
+    for n <= :data:`ALLOCATE_MAX_N` in one launch (pairwise ranks, B1's DP,
+    the first maximum and the loads; it replaces no TPU kernel), the
+    probabilities and the pool rows read as they lie.
 
 :func:`threshold_geometry` turns the two shapes and the thresholds' strides
 into the kernel's view, and refuses what the kernel cannot take.  Each
@@ -36,8 +42,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.obs import counters as _obs_counters
 
-_LAUNCHES = {"success_tails_cuda": 0, "success_tails_cuda_w": 0}
+_LAUNCHES = {"success_tails_cuda": 0, "success_tails_cuda_w": 0, "allocate_masked_cuda": 0}
 MAX_LEAD = 4            # leading axes of a threshold view with a stride (the kernel's kMaxLead)
+ALLOCATE_MAX_N = 64     # widest pool of the fused allocation (its widest instance)
 _STATIC_CACHE = 64      # static tuples kept on the device
 
 
@@ -57,7 +64,9 @@ _OBSERVERS: list[Callable[[torch.Tensor, torch.Tensor], None]] = []
 
 
 def add_launch_observer(observer: Callable[[torch.Tensor, torch.Tensor], None]) -> None:
-    """Call ``observer(probs, w)`` after every launch of either entry point."""
+    """Call ``observer(probs, w)`` after every launch of any entry point
+    (the fused allocation hands over its probabilities and thresholds: the
+    DP's work on its rows)."""
     _OBSERVERS.append(observer)
 
 
@@ -102,7 +111,6 @@ class ThresholdGeometry(NamedTuple):
                 self.last_stride]
 
 
-@functools.lru_cache(maxsize=256)
 def threshold_geometry(probs_shape: tuple[int, ...], w_shape: tuple[int, ...],
                        w_strides: tuple[int, ...]) -> ThresholdGeometry:
     """The kernel's view of thresholds of ``w_shape`` / ``w_strides``
@@ -112,6 +120,19 @@ def threshold_geometry(probs_shape: tuple[int, ...], w_shape: tuple[int, ...],
     probabilities (the output keeps the probabilities' shape) or where more
     than :data:`MAX_LEAD` strided leading axes remain after merging.
     """
+    geometry = _geometry(probs_shape, w_shape, w_strides)
+    if len(geometry.axes) > MAX_LEAD:
+        raise ValueError(
+            f"thresholds of shape {w_shape} and strides {tuple(w_strides)} over "
+            f"{probs_shape} leave {len(geometry.axes)} strided leading axes; the kernel "
+            f"takes at most {MAX_LEAD}: make them contiguous first")
+    return geometry
+
+
+@functools.lru_cache(maxsize=256)
+def _geometry(probs_shape: tuple[int, ...], w_shape: tuple[int, ...],
+              w_strides: tuple[int, ...]) -> ThresholdGeometry:
+    """:func:`threshold_geometry` with any number of strided axes."""
     if not probs_shape:
         raise ValueError("probs must have a last axis of n workers")
     if len(w_shape) > len(probs_shape) or len(w_strides) != len(w_shape):
@@ -150,11 +171,6 @@ def threshold_geometry(probs_shape: tuple[int, ...], w_shape: tuple[int, ...],
                 merged[-1] = (d0, s0 * size, st0)
                 continue
         merged.append((d, size, stride))
-    if len(merged) > MAX_LEAD:
-        raise ValueError(
-            f"thresholds of shape {w_shape} and strides {tuple(w_strides)} over "
-            f"{probs_shape} leave {len(merged)} strided leading axes; the kernel "
-            f"takes at most {MAX_LEAD}: make them contiguous first")
     return ThresholdGeometry(rows, n, max(rep, 1), tuple(reversed(merged)), strides[-1])
 
 
@@ -173,6 +189,12 @@ def _library() -> ctypes.CDLL:
         lib.pb_success_tails.restype = ctypes.c_int
         lib.pb_max_n.argtypes = []
         lib.pb_max_n.restype = ctypes.c_int
+        lib.pb_allocate.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int, ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p,
+        ]
+        lib.pb_allocate.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -248,6 +270,82 @@ def success_tails_cuda_w(probs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-__all__ = ["MAX_LEAD", "ThresholdGeometry", "add_launch_observer", "launch_counts",
-           "launch_work", "remove_launch_observer", "reset_launch_counts",
+def _words(geometry: ThresholdGeometry):
+    words = geometry.words()
+    return (ctypes.c_int64 * len(words))(*words)
+
+
+def pool_rows(n: int, w: torch.Tensor, mask: torch.Tensor, ell_g: torch.Tensor,
+              ell_b: torch.Tensor) -> torch.Tensor:
+    """The fused allocation's pool rows, int32 (..., 2n + 2): each
+    ``[w_0 .. w_{n-1}, mask_0 .. mask_{n-1}, ell_g, ell_b]`` over the leading
+    axes the four share (broadcast among themselves, never to the
+    probabilities' size).  ``ell_g`` / ``ell_b`` hold one value a pool row
+    (no worker axis)."""
+    # broadcast_tensors, not broadcast_shapes: the latter imports sympy on
+    # its first call, seconds of a sweep's set-up
+    lead = torch.broadcast_tensors(w[..., 0], mask[..., 0], ell_g, ell_b)[0].shape
+    parts = [(w, n), (mask, n), (ell_g[..., None], 1), (ell_b[..., None], 1)]
+    return torch.cat([x.to(torch.int32).expand(lead + (k,)) for x, k in parts], dim=-1)
+
+
+def row_view(t: torch.Tensor, shape: tuple[int, ...]
+             ) -> tuple[torch.Tensor, ThresholdGeometry]:
+    """``t`` and the kernel's view of its rows over ``shape`` (``t``
+    broadcastable to it): a slice or a broadcast is read as it lies, and
+    only a layout of more than :data:`MAX_LEAD` strided axes is copied."""
+    geometry = _geometry(tuple(shape), tuple(t.shape), t.stride())
+    if len(geometry.axes) > MAX_LEAD:
+        t = t.expand(shape).contiguous()
+        geometry = _geometry(tuple(shape), tuple(t.shape), t.stride())
+    return t, geometry
+
+
+def allocate_masked_cuda(p: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
+                         ell_g: torch.Tensor, ell_b: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(loads, i_star)`` of ``core.lea.allocate_masked`` in one launch.
+
+    ``p`` (..., n) float32 CUDA probabilities in worker order, any strides;
+    ``mask`` (..., n) bool, ``w`` (..., n) int32 prefix thresholds of the
+    valid pool, ``ell_g`` / ``ell_b`` (...,) integers, each broadcastable
+    to ``p``'s leading axes.  Returns int32 loads of ``p``'s shape and int64
+    i* (1-based) of its leading shape, bit-equal to the composition (stable
+    descending sort, B1, ``argmax``) for any non-NaN ``p``.
+    """
+    if p.device.type != "cuda":
+        raise ValueError(f"CUDA kernel called on a {p.device} tensor")
+    if p.dtype != torch.float32 or p.dim() < 1:
+        raise ValueError(f"p must be a (..., n) float32 tensor, got {p.dtype} "
+                         f"{tuple(p.shape)}")
+    n = p.shape[-1]
+    if not 1 <= n <= ALLOCATE_MAX_N:
+        raise ValueError(f"n={n}: the fused allocation takes 1 to {ALLOCATE_MAX_N} workers")
+    for name, t in (("mask", mask), ("w", w), ("ell_g", ell_g), ("ell_b", ell_b)):
+        if t.device != p.device:
+            raise ValueError(f"{name} must be on {p.device}, got {t.device}")
+    if n > 1 and p.stride(-1) != 1:
+        p = p.contiguous()
+    p, pg = row_view(p, tuple(p.shape))
+    rows_t, pv = row_view(pool_rows(n, w, mask, ell_g, ell_b),
+                          tuple(p.shape[:-1]) + (2 * n + 2,))
+    loads = torch.empty(p.shape, dtype=torch.int32, device=p.device)
+    i_star = torch.empty(p.shape[:-1], dtype=torch.int64, device=p.device)
+    if pg.rows == 0:
+        return loads, i_star
+    stream = torch._C._cuda_getCurrentRawStream(p.device.index)
+    err = _library().pb_allocate(p.data_ptr(), rows_t.data_ptr(), loads.data_ptr(),
+                                 i_star.data_ptr(), pg.rows, n, _words(pg), _words(pv),
+                                 stream)
+    if err != 0:
+        raise RuntimeError(f"poisson_binomial allocation launch failed: cudaError {err}")
+    _LAUNCHES["allocate_masked_cuda"] += 1
+    for observe in _OBSERVERS:
+        observe(p, w)
+    return loads, i_star
+
+
+__all__ = ["ALLOCATE_MAX_N", "MAX_LEAD", "ThresholdGeometry", "add_launch_observer",
+           "allocate_masked_cuda", "launch_counts", "launch_work", "pool_rows",
+           "remove_launch_observer", "reset_launch_counts", "row_view",
            "success_tails_cuda", "success_tails_cuda_w", "threshold_geometry"]

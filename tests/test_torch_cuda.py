@@ -89,6 +89,157 @@ def test_dispatcher_launches_the_kernel_for_cuda_tensors(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# the fused allocation: allocate_masked in one launch, bit-equal to the
+# composition (stable sort, B1, argmax) on the card
+# ---------------------------------------------------------------------------
+
+def _estimates(shape, gen, device):
+    """LEA-like predictions: smoothed count ratios (many exact ties), a
+    quarter of the rows all 0.5 (round 0)."""
+    a = torch.randint(0, 12, shape, generator=gen, device=device)
+    b = torch.randint(0, 12, shape, generator=gen, device=device)
+    p = (a + 1).float() / (a + b + 2).float()
+    p[..., ::4, :] = 0.5
+    return p
+
+
+def _pool(lead, n, gen, device, prefix=True):
+    """A PoolLoad over ``lead`` pool rows: per-row K* (some infeasible, some
+    always met), loads (ell_g, ell_b), prefix or arbitrary masks, and a few
+    all-masked rows."""
+    from repro_torch.core.lea import PoolLoad
+    ri = lambda lo, hi: torch.randint(lo, hi, lead, generator=gen, device=device,
+                                      dtype=torch.int32)
+    if prefix:
+        nv = torch.randint(0, n + 1, lead + (1,), generator=gen, device=device)
+        mask = torch.arange(n, device=device) < nv
+    else:
+        mask = torch.rand(lead + (n,), generator=gen, device=device) < 0.6
+    ell_b = ri(1, 4)
+    ell_g = ell_b + ri(1, 8)
+    return PoolLoad(kstar=ri(-3, 10 * n), ell_g=ell_g, ell_b=ell_b, mask=mask)
+
+
+def _composed(p, pool):
+    from repro_torch.core import lea
+    n = p.shape[-1]
+    n_valid = pool.mask.to(torch.int32).sum(dim=-1)
+    w = lea.prefix_thresholds_traced(pool.kstar, pool.ell_g, pool.ell_b, n_valid, n)
+    return lea._allocate_composed(p, pool.mask, n_valid, w, pool.ell_g, pool.ell_b)
+
+
+ALLOCATE_SHAPES = {   # (S, B, rounds of the tensor, rounds taken, n)
+    "fig3 block (2, 1024, 2330, 15) of 4660 rounds": (2, 1024, 4660, 2330, 15),
+    "fault_grid (1, 288, 20000, 15)": (1, 288, 20_000, 20_000, 15),
+    "n = 16, ragged": (2, 5, 301, 201, 16),
+    "n = 17, ragged": (2, 5, 301, 201, 17),
+    "n = 32, ragged": (2, 5, 301, 201, 32),
+    "n = 33, ragged": (2, 5, 301, 201, 33),
+    "n = 64, ragged": (2, 5, 301, 201, 64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ALLOCATE_SHAPES))
+def test_fused_allocation_is_bit_equal_to_the_composition(cuda_device, case):
+    """The engine's call: p (S, B, m, n) a slice of the rounds, the pool
+    (1, B, 1, .) read as it lies; loads, i* and feasible equal the sort +
+    B1 + argmax composition's, in one launch."""
+    from repro_torch.core import lea
+    s, b, rounds, m, n = ALLOCATE_SHAPES[case]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(len(case))
+    full = _estimates((s, b, rounds, n), gen, cuda_device)
+    p = full[:, :, rounds - m:]
+    row = _pool((b,), n, gen, cuda_device)
+    pool = lea.PoolLoad(kstar=row.kstar[None, :, None], ell_g=row.ell_g[None, :, None],
+                        ell_b=row.ell_b[None, :, None], mask=row.mask[None, :, None, :])
+    before = launch_counts()
+    loads, i_star, feasible = lea.allocate_masked(p, pool)
+    assert launch_counts()["allocate_masked_cuda"] == before["allocate_masked_cuda"] + 1
+    assert launch_counts()["success_tails_cuda_w"] == before["success_tails_cuda_w"]
+    want_loads, want_i = _composed(p, pool)
+    torch.cuda.synchronize()
+    assert loads.dtype == torch.int32 and i_star.dtype == torch.int64
+    assert loads.shape == p.shape and i_star.shape == feasible.shape == p.shape[:-1]
+    assert torch.equal(loads, want_loads) and torch.equal(i_star, want_i)
+    del full, p, loads, want_loads
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [15, 33])
+def test_fused_allocation_at_serving_segments_equals_the_cpu(cuda_device, n):
+    """allocate_queue's segment masks (any subset of the pool, p broadcast
+    over the slots): the card's fused route equals the CPU composition."""
+    from repro_torch.core import lea
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(n)
+    b, q = 96, 6
+    p = _estimates((b, n), gen, "cpu")
+    pool_mask = torch.rand((b, n), generator=gen) < 0.9
+    active = torch.rand((b, q), generator=gen) < 0.7
+    ri = lambda lo, hi: torch.randint(lo, hi, (b, q), generator=gen, dtype=torch.int32)
+    ell_b = ri(1, 4)
+    args = (p, pool_mask, active, ri(1, 5 * n), ell_b + ri(1, 8), ell_b,
+            torch.argsort(torch.rand((b, q), generator=gen), dim=-1))
+    want = lea.allocate_queue(*args)
+    got = lea.allocate_queue(*(t.to(cuda_device) for t in args))
+    for g, w_ in zip(got, want, strict=True):
+        assert torch.equal(g.cpu(), w_)
+    # any subset a slot, p a stride-0 view over the slots, against the card's
+    # own composition
+    p_card = p.to(cuda_device)[:, None].expand(b, q, n)
+    pool = _pool((b, q), n, torch.Generator(device=cuda_device), cuda_device, prefix=False)
+    loads, i_star, _ = lea.allocate_masked(p_card, pool)
+    want_loads, want_i = _composed(p_card, pool)
+    assert torch.equal(loads, want_loads) and torch.equal(i_star, want_i)
+
+
+@pytest.mark.cuda
+def test_fig3_sweep_allocates_in_one_fused_launch_a_block(cuda_device):
+    """A fig3 sweep at round_chunk 500: one fused launch a block, no launch
+    of B1 alone (pb_tails_regs), every CUDA row on the fused route."""
+    from repro_torch import sweeps
+    from repro_torch.kernels import poisson_binomial as pb
+    group, = sweeps.build_groups(sweeps.expand("fig3", rounds=2000), seeds=4)
+    before = launch_counts()
+    pb.reset_allocate_engagement()
+    sweeps.run_group(group, round_chunk=500)
+    after = launch_counts()
+    assert after["allocate_masked_cuda"] - before["allocate_masked_cuda"] == 4
+    assert after["success_tails_cuda_w"] == before["success_tails_cuda_w"]
+    assert after["success_tails_cuda"] == before["success_tails_cuda"]
+    rows = pb.allocate_engagement()
+    assert rows == {"fused_rows": 2 * group.batch.rows * 2000, "composed_rows": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,share", [(15, 1.0), (65, 0.0)])
+def test_allocate_engagement_share_follows_the_width(cuda_device, n, share):
+    """n = 15: every row on the fused route; n = 65 (past ALLOCATE_MAX_N):
+    every row on the composition (sort + B1's pb_tails_smem), which still
+    equals the CPU's."""
+    from repro_torch.core import lea
+    from repro_torch.kernels import poisson_binomial as pb
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(n)
+    p = _estimates((3, 40, n), gen, "cpu")
+    pool = _pool((3, 40), n, gen, "cpu", prefix=False)
+    pb.reset_allocate_engagement()
+    before = launch_counts()
+    got = lea.allocate_masked(p.to(cuda_device), lea.PoolLoad(*(t.to(cuda_device)
+                                                                 for t in pool)))
+    rows = pb.allocate_engagement()
+    assert rows["fused_rows"] / (rows["fused_rows"] + rows["composed_rows"]) == share
+    assert rows["fused_rows"] + rows["composed_rows"] == 3 * 40
+    fused = launch_counts()["allocate_masked_cuda"] - before["allocate_masked_cuda"]
+    assert fused == (1 if share else 0)
+    for g, w_ in zip(got, lea.allocate_masked(p, pool), strict=True):
+        assert torch.equal(g.cpu(), w_)
+
+
+# ---------------------------------------------------------------------------
 # the coding kernels: exact GF(p) matmul, Lagrange encode, fused gradient
 # ---------------------------------------------------------------------------
 
@@ -404,14 +555,16 @@ def test_fault_sweep_on_the_card_matches_the_replayed_cpu_run(cuda_device):
     """The packet_erasure grid (300 rounds, 2 seeds a cell) on the card and
     on the CPU from the same draws: the same outcomes (argmax ties could
     flip a round; the DP kernel repeats the plain version's roundings, so
-    none is expected), B1 launched once."""
+    none is expected), the fused allocation launched once and B1 alone
+    not at all."""
     from repro_torch import faults
     from repro_torch.random import RecordedDraws, ReplayedDraws, torch_draws
     recorder = RecordedDraws(torch_draws(3, cuda_device))
     args, geometry = _erasure_args(cuda_device, 300, 2)
-    before = launch_counts()["success_tails_cuda_w"]
+    before = launch_counts()
     on_card = faults.sweep_faults(recorder, *args, **geometry, device=cuda_device)
-    assert launch_counts()["success_tails_cuda_w"] == before + 1
+    assert launch_counts()["allocate_masked_cuda"] == before["allocate_masked_cuda"] + 1
+    assert launch_counts()["success_tails_cuda_w"] == before["success_tails_cuda_w"]
     cpu_args, _ = _erasure_args("cpu", 300, 2)
     on_cpu = faults.sweep_faults(ReplayedDraws(recorder.calls), *cpu_args, **geometry,
                                  device="cpu")
@@ -523,7 +676,8 @@ def test_serving_on_the_card_matches_the_replayed_cpu_run(cuda_device, controlle
     """The arrival grid (200 rounds, 2 seeds a cell, lea and oracle) on the
     card and on the CPU from the same draws: every ServingOutcomes field
     equal (B1 repeats the plain version's roundings, so no allocation tie
-    flips); B1 launched rounds + 1 times; no sync inside the round loop."""
+    flips); the fused allocation launched once a round and B1 once (the
+    admission gate); no sync inside the round loop."""
     from repro_torch import serving
     from repro_torch.random import RecordedDraws, ReplayedDraws, torch_draws
     from repro_torch.serving import engine
@@ -538,13 +692,14 @@ def test_serving_on_the_card_matches_the_replayed_cpu_run(cuda_device, controlle
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
-    before = launch_counts()["success_tails_cuda_w"]
+    before = launch_counts()
     engine._round_loop = strict
     try:
         on_card = serving.sweep_serving(recorder, *args, **kwargs)
     finally:
         engine._round_loop = loop
-    assert launch_counts()["success_tails_cuda_w"] == before + 201
+    assert launch_counts()["allocate_masked_cuda"] == before["allocate_masked_cuda"] + 200
+    assert launch_counts()["success_tails_cuda_w"] == before["success_tails_cuda_w"] + 1
     cpu_args, cpu_kwargs = _arrival_args("cpu", 200, 2, controlled)
     on_cpu = serving.sweep_serving(ReplayedDraws(recorder.calls), *cpu_args, **cpu_kwargs)
     for field in serving.ServingOutcomes._fields:
@@ -680,17 +835,17 @@ def test_serving_taps_on_the_card_sync_only_between_segments(cuda_device):
 
 @pytest.mark.cuda
 def test_pipelined_sweep_on_the_card_equals_sync_with_one_b1_launch_a_block(cuda_device):
-    """fig3 (16 rows x 2 000 rounds) at round_chunk 250: 8 blocks, 8 B1
-    launches, the same successes as the sync path on the group's generator,
-    the carries updated in place; with taps, 16 x 8 events and the same
-    successes again."""
+    """fig3 (16 rows x 2 000 rounds) at round_chunk 250: 8 blocks, 8
+    launches of the fused allocation (B1's DP), the same successes as the
+    sync path on the group's generator, the carries updated in place; with
+    taps, 16 x 8 events and the same successes again."""
     from repro_torch import obs, sweeps
     from repro_torch.sweeps import executor
     group, = sweeps.build_groups(sweeps.expand("fig3", rounds=2000), seeds=4)
     sync = sweeps.run_group(group, round_chunk=250)
-    before = launch_counts()["success_tails_cuda_w"]
+    before = launch_counts()["allocate_masked_cuda"]
     piped = sweeps.run_group(group, round_chunk=250, pipeline=True)
-    assert launch_counts()["success_tails_cuda_w"] - before == 8
+    assert launch_counts()["allocate_masked_cuda"] - before == 8
     np.testing.assert_array_equal(piped, sync)
     stats = executor.last_pipeline_stats()
     assert stats["donated"] is True and stats["blocks"] == 8
@@ -721,12 +876,13 @@ def test_pipeline_host_copy_waits_for_the_compute_stream(cuda_device):
 @pytest.mark.cuda
 def test_cost_rows_on_the_card_count_each_b1_launch(cuda_device):
     """The op-cost rows run on the card by default; every pool-path entry
-    point launches B1 there, and the counter adds each launch's work."""
+    point launches B1's DP there (alone or in the fused allocation), and the
+    counter adds each launch's work."""
     from repro_torch.launch import hlo_cost
     for name in hlo_cost.entry_point_names():
-        before = launch_counts()["success_tails_cuda_w"] + launch_counts()["success_tails_cuda"]
+        before = sum(launch_counts().values())
         costs = hlo_cost.entry_costs(name)
-        after = launch_counts()["success_tails_cuda_w"] + launch_counts()["success_tails_cuda"]
+        after = sum(launch_counts().values())
         assert costs.kernel_launches == after - before > 0, name
         assert 0 < costs.kernel_bytes <= costs.hbm_bytes, name
         assert 0 < costs.kernel_flops <= costs.other_flops, name

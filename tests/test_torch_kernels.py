@@ -289,7 +289,9 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     assert torch.equal(success_tails(p, w), success_tails_ref(p, w))
     assert torch.equal(success_tails(p, tuple(w[0].tolist())),
                        success_tails_ref(p, w[0]))
-    assert launch_counts() == {"success_tails_cuda": 0, "success_tails_cuda_w": 0}
+    lea.allocate_masked(p, lea.pool_load(LoadParams(15, 99, 10, 3), device="cpu"))
+    assert launch_counts() == {"success_tails_cuda": 0, "success_tails_cuda_w": 0,
+                               "allocate_masked_cuda": 0}
 
 
 def test_cuda_entry_points_refuse_cpu_tensors():

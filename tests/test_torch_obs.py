@@ -760,7 +760,7 @@ def test_launch_counts_cover_every_kernel_module():
     assert set(counters.launch_counts()) == set(want) == {
         "coded_gradient_cuda", "flash_attention_cuda", "matmul_gf_cuda", "bmm_gf_cuda",
         "encode_matrix_cuda", "success_tails_cuda", "success_tails_cuda_w",
-        "static_resample_cuda"}
+        "allocate_masked_cuda", "static_resample_cuda"}
     pb._LAUNCHES["success_tails_cuda_w"] += 3
     assert counters.launch_counts()["success_tails_cuda_w"] == pb.launch_counts()[
         "success_tails_cuda_w"]
