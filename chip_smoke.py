@@ -189,19 +189,17 @@ Phases, one line each (any failure raises and exits non-zero):
      the serving CLI with ``--progress --tap-log``: every logged event
      valid; (g) a child process loads every kernel with no ``nvcc`` run,
      and the launches of (a)-(d) by kernel are printed;
- 14. the speed layer (``sweeps.executor``'s pipelined path and
+ 14. the speed layer (``sweeps.executor``'s chunked ``run_group`` and
      ``run_multihost``, ``repro_torch.launch``): (a) fig3 (256 rows x 20 000
-     rounds) through ``run_group(round_chunk=2500)``, pipelined and sync on
-     the group's generator: equal to the bit, both within 4.5 sd of
-     ``BENCH_fig3.json``, the fused allocation launched once a block (8 a
-     call), the carries
-     updated in place (``donated``); 3 warm runs of each mode and of the sync
-     unchunked call timed, and a tapped pipelined call gives 256 x 8 events
-     with the same successes; (b) two child processes, one after the other,
+     rounds) through ``run_group(round_chunk=2500)`` and unchunked on the
+     group's generator: both within 4.5 sd of ``BENCH_fig3.json``, the
+     fused allocation launched once a block (8 a chunked call); 3 warm runs
+     of each timed, and a tapped chunked call gives 256 x 8 events with the
+     same successes; (b) two child processes, one after the other,
      with ``REPRO_COMPILE_CACHE`` at one fresh directory: the cold one runs
      two ``nvcc`` (B1 and the static resampler) and the warm one none
      (cache hits), ``build/`` unchanged;
-     (c) ``run_multihost("hetero_kstar", pipeline=True)`` in two child
+     (c) ``run_multihost("hetero_kstar")`` in two child
      processes joined by gloo on localhost: process 0's merged successes and
      summaries equal this process's interleave of the two row shards, and at
      world 1 ``run_multihost`` gives ``run``'s results; (d) the op-cost rows
@@ -2647,17 +2645,15 @@ def fig3_against_bench(results, bench, strategies=("lea", "static", "oracle")) -
 
 
 def speed_fig3(bench) -> tuple[int, int]:
-    """Phase 14a: fig3 (256 rows x 20 000 rounds) pipelined against the sync
-    path at ``round_chunk=2500`` on the group's own generator: equal to the
-    bit, both within 4.5 sd of ``BENCH_fig3.json``, 8 allocation launches a call,
-    the carries updated in place, the resampler launched in every call; 3
-    warm runs of each mode timed beside the sync unchunked call; a
-    tapped pipelined call gives 256 x 8 events and the same successes.
-    Returns the allocation's and the resampler's launches in 14a."""
+    """Phase 14a: fig3 (256 rows x 20 000 rounds) at ``round_chunk=2500``
+    and unchunked on the group's own generator: both within 4.5 sd of
+    ``BENCH_fig3.json``, 8 allocation launches a chunked call, the resampler
+    launched in every call; 3 warm runs of each timed; a tapped chunked call
+    gives 256 x 8 events and the same successes.  Returns the allocation's
+    and the resampler's launches in 14a."""
     from repro_torch import obs, sweeps
     from repro_torch.kernels.poisson_binomial import kernel as kernel_mod
     from repro_torch.kernels.static_resample import kernel as resample_mod
-    from repro_torch.sweeps import executor
 
     group, = sweeps.build_groups(sweeps.expand("fig3"), seeds=64)
     rows, rounds = group.batch.rows, group.rounds
@@ -2677,47 +2673,36 @@ def speed_fig3(bench) -> tuple[int, int]:
         return out, wall, n
 
     sync, _, n_sync = call(round_chunk=SPEED_CHUNK)
-    piped, _, n_piped = call(round_chunk=SPEED_CHUNK, pipeline=True)
-    stats = executor.last_pipeline_stats()
-    if not np.array_equal(sync, piped):
-        raise AssertionError(f"fig3: pipelined differs from sync in "
-                             f"{int((sync != piped).any(axis=-1).sum())} rounds")
-    if n_piped != blocks or n_sync != blocks:
-        raise AssertionError(f"fig3: the allocation launched {n_piped} (pipelined) and "
-                             f"{n_sync} (sync) times, not once a block ({blocks})")
-    if stats["donated"] is not True or stats["blocks"] != blocks:
-        raise AssertionError(f"fig3: pipeline stats {stats}")
+    unchunked, _, _ = call()
+    if n_sync != blocks:
+        raise AssertionError(f"fig3: the allocation launched {n_sync} times, not once "
+                             f"a block ({blocks})")
     max_z = {mode: {s: round(max(line[s][2] for line in lines), 2) for s in lines[0]}
-             for mode, succ in (("sync", sync), ("pipelined", piped))
+             for mode, succ in (("sync", sync), ("sync_unchunked", unchunked))
              for lines in [fig3_against_bench(sweeps.summarize([group], [succ]), bench)]}
-    walls = {"sync": [], "pipelined": [], "sync_unchunked": []}
+    walls = {"sync": [], "sync_unchunked": []}
     for _ in range(3):
         walls["sync"].append(call(round_chunk=SPEED_CHUNK)[1])
-        walls["pipelined"].append(call(round_chunk=SPEED_CHUNK, pipeline=True)[1])
         walls["sync_unchunked"].append(call()[1])
-    stats = executor.last_pipeline_stats()
     with obs.capture_taps() as events:
-        tapped, _, _ = call(round_chunk=SPEED_CHUNK, pipeline=True, tap=True)
-    if not np.array_equal(tapped, piped) or len(events) != rows * blocks:
-        raise AssertionError(f"fig3 tapped pipeline: {len(events)} events, bit_equal="
-                             f"{np.array_equal(tapped, piped)}")
+        tapped, _, _ = call(round_chunk=SPEED_CHUNK, tap=True)
+    if not np.array_equal(tapped, sync) or len(events) != rows * blocks:
+        raise AssertionError(f"fig3 tapped: {len(events)} events, bit_equal="
+                             f"{np.array_equal(tapped, sync)}")
     last = {}
     for e in events:
         obs.validate_event(e)
         last[int(e["row"])] = e
     for r, e in last.items():
         if int(e["rounds_done"]) != rounds or not np.array_equal(e["succ_so_far"],
-                                                                  piped[r].sum(axis=0)):
-            raise AssertionError(f"fig3 tapped pipeline row {r}: last event {e}")
+                                                                  sync[r].sum(axis=0)):
+            raise AssertionError(f"fig3 tapped row {r}: last event {e}")
     med = {mode: statistics.median(w) for mode, w in walls.items()}
     log("speed_fig3", rows=rows, rounds=rounds, round_chunk=SPEED_CHUNK, blocks=blocks,
-        bit_equal=True, allocation_launches_per_call=n_piped, donated=True,
-        max_z=json.dumps(max_z),
+        allocation_launches_per_call=n_sync, max_z=json.dumps(max_z),
         **{f"{m}_s": f"{v:.4f}" for m, v in med.items()},
         **{f"{m}_row_rounds_per_s": f"{rows * rounds / v:.0f}" for m, v in med.items()},
         walls=json.dumps({m: [round(x, 4) for x in w] for m, w in walls.items()}),
-        pipeline_stats=json.dumps({k: (round(v, 5) if isinstance(v, float) else v)
-                                   for k, v in stats.items()}),
         tap_events=len(events), resampler_launches=resampled,
         gpu=json.dumps(nvidia_smi_line()))
     return launched, resampled
@@ -2778,7 +2763,7 @@ MULTI_ROUNDS, MULTI_SEEDS, MULTI_CHUNK = 2000, 4, 500
 
 
 def speed_multihost(tmp: Path) -> None:
-    """Phase 14c: ``run_multihost("hetero_kstar", pipeline=True)`` in two
+    """Phase 14c: ``run_multihost("hetero_kstar")`` in two
     child processes on the one card (gloo on localhost): process 0's merged
     successes equal this process's own interleave of ``run_group`` over the
     two sub-groups, bit for bit, and so do the summaries; at world 1
@@ -2790,7 +2775,7 @@ def speed_multihost(tmp: Path) -> None:
     from repro_torch.launch import mesh
     from repro_torch.sweeps import executor
 
-    kw = dict(seeds=MULTI_SEEDS, round_chunk=MULTI_CHUNK, pipeline=True, rounds=MULTI_ROUNDS)
+    kw = dict(seeds=MULTI_SEEDS, round_chunk=MULTI_CHUNK, rounds=MULTI_ROUNDS)
     spool, out = tmp / "spool", tmp / "multi"
     code = ("import json, sys\n"
             "import numpy as np, torch\n"
@@ -2837,7 +2822,7 @@ def speed_multihost(tmp: Path) -> None:
     mine = np.empty_like(merged)
     for pid in range(2):
         sub = executor._slice_group_rows(group, pid, 2)
-        mine[pid::2] = sweeps.run_group(sub, round_chunk=MULTI_CHUNK, pipeline=True)
+        mine[pid::2] = sweeps.run_group(sub, round_chunk=MULTI_CHUNK)
     if merged.shape != (group.batch.rows, MULTI_ROUNDS, len(group.strategies)) \
             or not np.array_equal(merged, mine):
         raise AssertionError(f"multihost: merged {merged.shape} differs from the interleave "

@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.kernels.dispatch import KERNEL, route
 from repro_torch.kernels.poisson_binomial import (ALLOCATE_MAX_N, allocate_masked_cuda,
-                                                  count_allocate, success_tails)
+                                                  success_tails)
 
 
 class EstimatorState(NamedTuple):
@@ -251,7 +251,7 @@ def allocate_masked(
 
     The route follows the tensor and the width: a CUDA tensor of n <=
     ``ALLOCATE_MAX_N`` workers takes the fused kernel, every other the
-    composition; both add their CUDA rows to ``allocate_engagement()``.
+    composition (``obs.launch_counts()`` tells the two apart).
     """
     mask = pool.mask
     n = p_good.shape[-1]
@@ -266,8 +266,6 @@ def allocate_masked(
         loads, i_star = allocate_masked_cuda(p_all, mask, w, pool.ell_g, pool.ell_b)
     else:
         loads, i_star = _allocate_composed(p_good, mask, n_valid, w, pool.ell_g, pool.ell_b)
-    if on_card:
-        count_allocate(fused, i_star.numel())
     i_tilde = torch.arange(1, n + 1, device=p_good.device)
     feasible = torch.any((w <= i_tilde) & (i_tilde <= n_valid[..., None]), dim=-1)
     return loads, i_star, torch.broadcast_to(feasible, i_star.shape)

@@ -254,9 +254,9 @@ def engine_block(states_b, draws, rounds: int, start: int, p_alloc_b, pi_g, load
     ``states_b`` (B, m, n) and ``p_alloc_b`` (A, B, m, n) are the block's
     slices of :func:`engine_preamble`'s outputs; ``mu_g`` / ``mu_b`` /
     ``deadline`` are (B,).  The block's static draws come from ``draws``
-    at this call.  Both the sync chunked path and the pipelined executor
-    (:mod:`repro_torch.sweeps.executor`) run a block through this one
-    function, so the same draws give the same bits on either path.
+    at this call.  The chunked path runs every block through this one
+    function, the counterpart of the JAX package's ``engine_block``, so the
+    same draws give the same bits as the JAX package's blocks.
     """
     loads_mat, feasible, _prefix = _rollout_block_stats(
         states_b, draws, rounds, start, p_alloc_b, pi_g, load, strategies)

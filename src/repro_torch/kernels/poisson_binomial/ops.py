@@ -12,14 +12,6 @@ picks the kernel's entry point, as in the JAX package:
     keeps stride 0 and nothing of ``probs``' size is written for them.
 
 Any leading batch shape is accepted.
-
-The allocation's engagement counter (:func:`count_allocate`, read by
-:func:`allocate_engagement`) counts the CUDA rows ``core.lea.allocate_masked``
-hands to each route: ``fused_rows`` (one launch of
-:func:`allocate_masked_cuda`) and ``composed_rows`` (the sort, B1 and
-``argmax``, for pools wider than ``ALLOCATE_MAX_N``).  CPU rows are not
-counted.  They are rows, not launches: the kernels' launches are counted
-where they launch (``kernel.launch_counts``).
 """
 
 from __future__ import annotations
@@ -31,8 +23,6 @@ from repro_torch.kernels.dispatch import PLAIN, route
 
 from .kernel import success_tails_cuda, success_tails_cuda_w
 from .ref import success_tails_ref
-
-_ENGAGEMENT = {"fused_rows": 0, "composed_rows": 0}
 
 
 def success_tails(probs: torch.Tensor, w) -> torch.Tensor:
@@ -50,22 +40,5 @@ def success_tails(probs: torch.Tensor, w) -> torch.Tensor:
     return success_tails_cuda(probs32, w)
 
 
-def count_allocate(fused: bool, rows: int) -> None:
-    """Add ``rows`` CUDA rows of an allocation to the route they took."""
-    _ENGAGEMENT["fused_rows" if fused else "composed_rows"] += rows
-
-
-def allocate_engagement() -> dict[str, int]:
-    """CUDA rows of each allocation route since the last
-    :func:`reset_allocate_engagement`."""
-    return dict(_ENGAGEMENT)
-
-
-def reset_allocate_engagement() -> None:
-    for name in _ENGAGEMENT:
-        _ENGAGEMENT[name] = 0
-
-
-__all__ = ["allocate_engagement", "count_allocate", "reset_allocate_engagement",
-           "success_tails", "success_tails_cuda", "success_tails_cuda_w",
+__all__ = ["success_tails", "success_tails_cuda", "success_tails_cuda_w",
            "success_tails_ref"]

@@ -6,7 +6,7 @@
     plus deadline, bursty-chain, heterogeneous-K*, elastic-pool,
     straggler-slack and non-stationary families;
   * :mod:`~repro_torch.sweeps.executor`  — one batched engine call per group
-    (sync or pipelined), row shards over processes (:func:`run_multihost`);
+    (chunked in blocks of rounds), row shards over processes (:func:`run_multihost`);
   * :mod:`~repro_torch.sweeps.results`   — throughputs, ratios, CIs, regret,
     provenance-stamped manifests.
 
@@ -20,8 +20,8 @@ The one-liner::
 
 from repro_torch.obs.telemetry import TelemetryFrame
 
-from .executor import (compile_cache_size, last_pipeline_stats, run, run_group,
-                       run_groups, run_multihost, suggest_round_chunk)
+from .executor import (compile_cache_size, run, run_group, run_groups, run_multihost,
+                       suggest_round_chunk)
 from .registry import (Scenario, ScenarioBatch, SweepGroup, as_dense_schedule,
                        build_groups, catalogue, describe, expand, family_names,
                        register)
@@ -31,7 +31,7 @@ from .results import (ScenarioResult, manifest, summarize, summarize_group,
 __all__ = [
     "Scenario", "ScenarioBatch", "ScenarioResult", "SweepGroup", "TelemetryFrame",
     "as_dense_schedule", "build_groups", "catalogue", "compile_cache_size",
-    "describe", "expand", "family_names", "last_pipeline_stats", "manifest",
+    "describe", "expand", "family_names", "manifest",
     "register", "run", "run_group", "run_groups", "run_multihost",
     "suggest_round_chunk", "summarize", "summarize_group", "write_manifest",
 ]

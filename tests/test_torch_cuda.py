@@ -198,43 +198,37 @@ def test_fused_allocation_at_serving_segments_equals_the_cpu(cuda_device, n):
 
 @pytest.mark.cuda
 def test_fig3_sweep_allocates_in_one_fused_launch_a_block(cuda_device):
-    """A fig3 sweep at round_chunk 500: one fused launch a block, no launch
-    of B1 alone (pb_tails_regs), every CUDA row on the fused route."""
+    """A fig3 sweep at round_chunk 500: one fused launch a block and no
+    launch of B1 alone (pb_tails_regs)."""
     from repro_torch import sweeps
-    from repro_torch.kernels import poisson_binomial as pb
     group, = sweeps.build_groups(sweeps.expand("fig3", rounds=2000), seeds=4)
     before = launch_counts()
-    pb.reset_allocate_engagement()
     sweeps.run_group(group, round_chunk=500)
     after = launch_counts()
     assert after["allocate_masked_cuda"] - before["allocate_masked_cuda"] == 4
     assert after["success_tails_cuda_w"] == before["success_tails_cuda_w"]
     assert after["success_tails_cuda"] == before["success_tails_cuda"]
-    rows = pb.allocate_engagement()
-    assert rows == {"fused_rows": 2 * group.batch.rows * 2000, "composed_rows": 0}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,share", [(15, 1.0), (65, 0.0)])
-def test_allocate_engagement_share_follows_the_width(cuda_device, n, share):
-    """n = 15: every row on the fused route; n = 65 (past ALLOCATE_MAX_N):
-    every row on the composition (sort + B1's pb_tails_smem), which still
-    equals the CPU's."""
+@pytest.mark.parametrize("n,fused", [(15, True), (65, False)])
+def test_allocation_route_follows_the_width(cuda_device, n, fused):
+    """n = 15: one fused launch and no launch of B1 alone; n = 65 (past
+    ALLOCATE_MAX_N): no fused launch and one of B1 in the composition (sort
+    + B1's pb_tails_smem), which still equals the CPU's."""
     from repro_torch.core import lea
-    from repro_torch.kernels import poisson_binomial as pb
     gen = torch.Generator(device="cpu")
     gen.manual_seed(n)
     p = _estimates((3, 40, n), gen, "cpu")
     pool = _pool((3, 40), n, gen, "cpu", prefix=False)
-    pb.reset_allocate_engagement()
     before = launch_counts()
     got = lea.allocate_masked(p.to(cuda_device), lea.PoolLoad(*(t.to(cuda_device)
                                                                  for t in pool)))
-    rows = pb.allocate_engagement()
-    assert rows["fused_rows"] / (rows["fused_rows"] + rows["composed_rows"]) == share
-    assert rows["fused_rows"] + rows["composed_rows"] == 3 * 40
-    fused = launch_counts()["allocate_masked_cuda"] - before["allocate_masked_cuda"]
-    assert fused == (1 if share else 0)
+    after = launch_counts()
+    launched = {k: after[k] - before[k]
+                for k in ("allocate_masked_cuda", "success_tails_cuda_w")}
+    assert launched == ({"allocate_masked_cuda": 1, "success_tails_cuda_w": 0} if fused
+                        else {"allocate_masked_cuda": 0, "success_tails_cuda_w": 1})
     for g, w_ in zip(got, lea.allocate_masked(p, pool), strict=True):
         assert torch.equal(g.cpu(), w_)
 
@@ -834,43 +828,19 @@ def test_serving_taps_on_the_card_sync_only_between_segments(cuda_device):
 
 
 @pytest.mark.cuda
-def test_pipelined_sweep_on_the_card_equals_sync_with_one_b1_launch_a_block(cuda_device):
+def test_chunked_sweep_on_the_card_launches_one_fused_allocation_a_block(cuda_device):
     """fig3 (16 rows x 2 000 rounds) at round_chunk 250: 8 blocks, 8
-    launches of the fused allocation (B1's DP), the same successes as the
-    sync path on the group's generator, the carries updated in place; with
-    taps, 16 x 8 events and the same successes again."""
+    launches of the fused allocation (B1's DP); with taps, 16 x 8 events and
+    the same successes, both calls drawing from the group's generator."""
     from repro_torch import obs, sweeps
-    from repro_torch.sweeps import executor
     group, = sweeps.build_groups(sweeps.expand("fig3", rounds=2000), seeds=4)
-    sync = sweeps.run_group(group, round_chunk=250)
     before = launch_counts()["allocate_masked_cuda"]
-    piped = sweeps.run_group(group, round_chunk=250, pipeline=True)
+    chunked = sweeps.run_group(group, round_chunk=250)
     assert launch_counts()["allocate_masked_cuda"] - before == 8
-    np.testing.assert_array_equal(piped, sync)
-    stats = executor.last_pipeline_stats()
-    assert stats["donated"] is True and stats["blocks"] == 8
     with obs.capture_taps() as events:
-        tapped = sweeps.run_group(group, round_chunk=250, pipeline=True, tap=True)
-    np.testing.assert_array_equal(tapped, sync)
+        tapped = sweeps.run_group(group, round_chunk=250, tap=True)
+    np.testing.assert_array_equal(tapped, chunked)
     assert len(events) == group.batch.rows * 8
-    assert executor.last_pipeline_stats()["shard_cached"] is True
-
-
-@pytest.mark.cuda
-def test_pipeline_host_copy_waits_for_the_compute_stream(cuda_device):
-    """The side-stream copy to pinned memory starts only after the work
-    queued before it on the compute stream: a buffer written after a long
-    device sleep reaches the host with its final values."""
-    from repro_torch.sweeps.executor import _HostCopy
-    copier = _HostCopy(cuda_device)
-    t = torch.zeros(1 << 22, device=cuda_device)
-    torch.cuda._sleep(100_000_000)
-    t.fill_(7.0)
-    (host,), done = copier.start(t)
-    assert host.is_pinned() and host.device.type == "cpu"
-    assert not done.query()          # the copy waits behind the sleep
-    done.synchronize()
-    assert bool((host == 7.0).all())
 
 
 @pytest.mark.cuda

@@ -1,12 +1,12 @@
 """The port's speed layer against the JAX package's, on the CPU.
 
-``repro_torch.sweeps``' pipelined path, ``run_multihost`` with its row
-shards, ``repro_torch.launch`` (``mesh``, ``cache``, ``hlo_cost``) and the
-cache counters, beside ``repro.sweeps`` / ``repro.launch`` / ``repro.obs``.
-With the JAX package's uniforms replayed (``JaxDraws``) the pipelined
-successes equal ``repro``'s to the bit, chunked and unchunked; under the
-port's own generator they equal the port's sync path at the same
-``round_chunk``.  Also here: the two faults of the port found against the
+``repro_torch.sweeps``' chunked ``run_group``, ``run_multihost`` with its
+row shards, ``repro_torch.launch`` (``mesh``, ``cache``, ``hlo_cost``) and
+the cache counters, beside ``repro.sweeps`` / ``repro.launch`` /
+``repro.obs``.  With the JAX package's uniforms replayed (``JaxDraws``) the
+port's ``run_group`` equals the JAX package's pipelined path to the bit at
+the same ``round_chunk``, chunked and unchunked, successes and tap events
+alike.  Also here: the two faults of the port found against the
 reference (``tap_row`` of ``simulate_strategies_pool``, ``STRATEGIES``) and
 the static resampler's one host read a try.
 
@@ -56,6 +56,8 @@ FAMILIES = {
     "arrival_grid": dict(rates=(0.6, 2.4), deadline_rels=(1,)),
 }
 MULTI_KW = dict(ks=(50, 99), lams=(0.2, 0.7), rounds=96)
+# the JAX package's run_group options for its pipelined path (the port has none)
+JAX_PIPELINED = {"pipeline": True}
 MULTI_SEEDS = 2
 
 
@@ -244,7 +246,7 @@ def test_static_resample_ref_is_the_one_read_a_strategy_loop(name):
 
 
 # ---------------------------------------------------------------------------
-# engine_block and the pipelined path
+# engine_block and run_group against the JAX package's pipelined path
 # ---------------------------------------------------------------------------
 
 def test_engine_block_matches_jax_on_replayed_draws():
@@ -276,62 +278,34 @@ def test_engine_block_matches_jax_on_replayed_draws():
 @pytest.mark.parametrize("family,rounds,round_chunk", [
     ("hetero_kstar", 64, None), ("hetero_kstar", 64, 16), ("hetero_kstar", 96, 24),
     ("arrival_grid", 64, None), ("arrival_grid", 64, 16), ("arrival_grid", 96, 24),
+    ("fig3", 256, 100), ("fig3", 256, None), ("hetero_kstar", 256, 48),
 ])
-def test_pipeline_matches_jax_bit_for_bit(family, rounds, round_chunk):
+def test_run_group_matches_the_jax_pipelined_path_bit_for_bit(family, rounds, round_chunk):
     jgroup, group = _groups(family, rounds)
-    want = jexecutor.run_group(jgroup, round_chunk=round_chunk, pipeline=True)
-    got = executor.run_group(group, round_chunk=round_chunk, pipeline=True, device=CPU,
+    want = jexecutor.run_group(jgroup, round_chunk=round_chunk, **JAX_PIPELINED)
+    got = executor.run_group(group, round_chunk=round_chunk, device=CPU,
                              draws=JaxDraws(np.array(jgroup.batch.keys)))
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
-    stats = executor.last_pipeline_stats()
-    assert set(stats) == {"blocks", "round_chunk", "donated", "fold_s", "dispatch_s",
-                          "drain_s", "shard_cached"}
-    assert stats["donated"] is True
-    assert stats["blocks"] == -(-rounds // (round_chunk or rounds))
 
 
-@pytest.mark.parametrize("family,round_chunk", [("fig3", 100), ("fig3", None),
-                                                ("hetero_kstar", 48)])
-def test_pipeline_equals_sync_at_the_same_chunk_under_the_port_generator(family,
-                                                                           round_chunk):
-    group, = sweeps.build_groups(sweeps.expand(family, rounds=256), seeds=2)
-    sync = executor.run_group(group, round_chunk=round_chunk, device=CPU)
-    piped = executor.run_group(group, round_chunk=round_chunk, pipeline=True, device=CPU)
-    np.testing.assert_array_equal(piped, sync)
-    seeded = executor.run_group(group, round_chunk=round_chunk, pipeline=True, device=CPU,
-                                draws=torch_draws(group.generator_seed, CPU))
-    np.testing.assert_array_equal(seeded, sync)
-
-
-def test_pipeline_bookkeeping_cache_and_flags():
-    _, group = _groups("hetero_kstar", 64)
-    executor.run_group(group, round_chunk=16, pipeline=True, device=CPU)
-    executor.run_group(group, round_chunk=16, pipeline=True, device=CPU)
-    stats = executor.last_pipeline_stats()
-    assert stats["shard_cached"] is True and stats["donated"] is True
-    assert stats["blocks"] == 4 and stats["round_chunk"] == 16
-    # a distinct group of equal content is not served another group's batch
-    _, twin = _groups("hetero_kstar", 64)
-    executor.run_group(twin, round_chunk=16, pipeline=True, device=CPU)
-    assert executor.last_pipeline_stats()["shard_cached"] is False
-    with pytest.raises(ValueError, match="telemetry"):
-        executor.run_group(group, pipeline=True, telemetry=True, device=CPU)
-    name = "phase.sweeps_pipeline.seconds"
+def test_run_group_records_one_phase_metric_a_call():
+    name = "phase.sweeps_run_group.seconds"
     before = obs.default_metrics.get(name)["count"]
-    sweeps.run("hetero_kstar", rounds=32, pipeline=True, device=CPU, **FAMILIES["hetero_kstar"])
-    assert obs.default_metrics.get(name)["count"] == before + 1
+    groups = sweeps.build_groups(sweeps.expand("hetero_kstar", rounds=32,
+                                               **FAMILIES["hetero_kstar"]))
+    sweeps.run("hetero_kstar", rounds=32, device=CPU, **FAMILIES["hetero_kstar"])
+    assert obs.default_metrics.get(name)["count"] == before + len(groups)
 
 
 @pytest.mark.parametrize("round_chunk", [16, 24])
-def test_pipeline_tap_events_equal_the_sync_chunked_events(round_chunk):
-    _, group = _groups("hetero_kstar", 64)
-    with obs.capture_taps() as want:
-        sync = executor.run_group(group, round_chunk=round_chunk, tap=True, device=CPU)
+def test_run_group_tap_events_equal_the_jax_pipelined_events(round_chunk):
+    jgroup, group = _groups("hetero_kstar", 64)
+    with jobs.capture_taps() as want:
+        jexecutor.run_group(jgroup, round_chunk=round_chunk, tap=True, **JAX_PIPELINED)
     with obs.capture_taps() as got:
-        piped = executor.run_group(group, round_chunk=round_chunk, tap=True, pipeline=True,
-                                   tap_stride=5, device=CPU)
-    np.testing.assert_array_equal(piped, sync)
+        succ = executor.run_group(group, round_chunk=round_chunk, tap=True, device=CPU,
+                                  draws=JaxDraws(np.array(jgroup.batch.keys)))
     blocks = -(-64 // round_chunk)
     assert len(got) == group.batch.rows * blocks
     for e in got:
@@ -340,27 +314,7 @@ def test_pipeline_tap_events_equal_the_sync_chunked_events(round_chunk):
     last = {int(e["row"]): e for e in got}
     for r, e in last.items():
         assert int(e["rounds_done"]) == 64
-        np.testing.assert_array_equal(e["succ_so_far"], piped[r].sum(axis=0))
-
-
-def test_suggest_round_chunk_halves_the_budget_for_the_pipeline():
-    group, = sweeps.build_groups(sweeps.expand("hetero_kstar", rounds=64,
-                                               **FAMILIES["hetero_kstar"]), seeds=2)
-    lo, hi = 1 << 10, 1 << 40
-    while lo < hi:
-        mid = (lo + hi) // 2
-        if executor.suggest_round_chunk(group, budget_bytes=mid) is None:
-            hi = mid
-        else:
-            lo = mid + 1
-    fits = lo
-    assert executor.suggest_round_chunk(group, budget_bytes=fits) is None
-    assert executor.suggest_round_chunk(group, budget_bytes=fits, pipeline=True) is not None
-    budget = fits // 2
-    base = executor.suggest_round_chunk(group, budget_bytes=budget)
-    piped = executor.suggest_round_chunk(group, budget_bytes=budget, pipeline=True)
-    assert base is not None and piped is not None
-    assert piped == max(base // 2, 1)
+        np.testing.assert_array_equal(e["succ_so_far"], succ[r].sum(axis=0))
 
 
 # ---------------------------------------------------------------------------
@@ -374,7 +328,7 @@ def _manifest_doc(results):
 
 
 def _multi_kwargs(spool):
-    return dict(seeds=MULTI_SEEDS, spool_dir=spool, round_chunk=24, pipeline=True,
+    return dict(seeds=MULTI_SEEDS, spool_dir=spool, round_chunk=24,
                 draws=_row_draws("hetero_kstar", MULTI_SEEDS, **MULTI_KW), device=CPU,
                 **MULTI_KW)
 
