@@ -151,7 +151,14 @@ Phases, one line each (any failure raises and exits non-zero):
      forward-error bound of the route of the uncoded X_j @ w (see
      ``faults_float_packets``), its relative error logged; (e) the retry/degrade executor
      under ``preempt`` at 0.35 (packets 4, 2 retries, partial serving) for
-     30 rounds: the outcomes sum to 30 and B2 launches;
+     30 rounds: the outcomes sum to 30 and B2 launches; (a) also holds the
+     sweep to one ``packet_counts_cuda`` launch; (f) the packet-count kernel
+     alone at fault_grid's shapes (S = 2, 288 rows x 20 000 rounds, n = 15,
+     r = 10, P = 4; the grid's speeds, deadline, preemptions and drops drawn
+     on the card): both modes' counts equal to the bit to the mask
+     composition it replaced on the card, each timed beside the kernel's
+     byte bound (keep, loads, states and t_cut read once, both counts
+     written once);
  12. the streaming serving layer (``repro_torch.serving``) at the paper's
      pool (n = 15, K* = 50, loads (10, 3), p_gg 0.8, p_bb 0.7, mu (10, 3),
      d = 1): (a) ``sweeps.expand("arrival_grid", rounds=512)`` with 16 seeds
@@ -346,6 +353,9 @@ KERNELS = {   # wrapper: (source, TPU kernel it replaces)
                              "src/repro/kernels/flash_attention/kernel.py:110"),
     "static_resample_cuda": (CSRC + "static_resample.cu",
                              "none (whole-batch passes, src/repro/core/throughput.py:178)"),
+    "packet_counts_cuda": (CSRC + "packet_counts.cu",
+                           "none (the packet masks and their sum composed in XLA, "
+                           "src/repro/faults/packets.py:68)"),
 }
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 
@@ -786,9 +796,10 @@ def reset_all_launch_counts() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gf
     from repro_torch.kernels import lagrange_encode as le
+    from repro_torch.kernels import packet_counts as pc
     from repro_torch.kernels import poisson_binomial as pb
     from repro_torch.kernels import static_resample as sr
-    for mod in (pb, gf, le, cg, fa, sr):
+    for mod in (pb, gf, le, cg, fa, sr, pc):
         mod.reset_launch_counts()
 
 
@@ -1708,8 +1719,10 @@ def fault_grid(scenarios, seeds: int, device: str):
 
 def faults_grid() -> dict[str, int]:
     """Phase 11a: the packet_erasure grid at the paper's M, 8 seeds a cell,
-    held to ``BENCH_faults.json``; returns the fused allocation's launches."""
+    held to ``BENCH_faults.json``; returns the fused allocation's and the
+    packet-count kernel's launches."""
     from repro_torch import faults, sweeps
+    from repro_torch.kernels import packet_counts as pc
     from repro_torch.kernels import poisson_binomial as pb
     from repro_torch.random import torch_draws
 
@@ -1722,7 +1735,10 @@ def faults_grid() -> dict[str, int]:
     torch.cuda.reset_peak_memory_stats()
     out, wall = timed(lambda: faults.sweep_faults(torch_draws(11), *args, **geometry))
     launches = pb.launch_counts()["allocate_masked_cuda"]
+    counted = pc.launch_counts()["packet_counts_cuda"]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if counted != 1:
+        raise AssertionError(f"the grid's sweep launched packet_counts_cuda {counted} times")
     # one cell alone (its first seed's row), the same geometry
     one_args, _ = fault_grid(scenarios[:1], 1, "cuda")
     reset_all_launch_counts()
@@ -1775,11 +1791,69 @@ def faults_grid() -> dict[str, int]:
         wall_warm_s=f"{wall_warm:.3f}",
         row_rounds_per_s_warm=f"{len(scenarios) * seeds * rounds / wall_warm:.0f}",
         peak_memory_gib=f"{peak_gib:.2f}", allocation_launches=launches,
-        allocation_launches_one_cell=launches_one, conserve_gain_rounds=gain,
+        allocation_launches_one_cell=launches_one, packet_counts_launches=counted,
+        conserve_gain_rounds=gain,
         containment=True, gpu=json.dumps(nvidia_smi_line()))
     log("faults_profile", part="grid",
         **profile_window(lambda: faults.sweep_faults(torch_draws(11), *args, **geometry)))
-    return {"allocate_masked_cuda": launches}
+    return {"allocate_masked_cuda": launches, "packet_counts_cuda": counted}
+
+
+def check_packet_counts() -> dict:
+    """Phase 11f: the packet-count kernel alone at fault_grid's shapes (S = 2,
+    288 rows x 20 000 rounds, n = 15, r = 10, P = 4): states good with
+    probability 0.7, loads 10 or 3, speeds (10, 3), deadline 1, a third of
+    the cutoffs preempted at a uniform fraction and 5% of the packets
+    dropped, all drawn on the card.  Both modes' counts equal to the bit to
+    the mask composition the engine ran before (on the card, where P = 4
+    divides exactly as on the CPU), one launch; the kernel timed back to
+    back and alone beside the composition and the byte bound."""
+    from repro_torch.faults import FaultTrace
+    from repro_torch.kernels import packet_counts as pc
+
+    s, b, m, n, r, p = 2, 288, 20_000, 15, 10, 4
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(35)
+    u = lambda *shape: torch.rand(shape, generator=gen, device="cuda")
+    states = (u(b, m, n) < 0.7).to(torch.int32)
+    loads = torch.where(u(s, b, m, n) < 0.7, 10, 3).to(torch.int32)
+    rows = lambda v: torch.full((b,), v, dtype=torch.float32, device="cuda")
+    mu_g, mu_b, deadline = rows(10.0), rows(3.0), rows(1.0)
+    t_cut = torch.where(u(b, m, n) < 1 / 3, u(b, m, n), 1.0)
+    keep = torch.empty((b, m, n, r, p), dtype=torch.bool, device="cuda")
+    for lo in range(0, b, 32):
+        keep[lo:lo + 32] = u(min(32, b - lo), m, n, r, p) >= 0.05
+    args = (states, loads, mu_g, mu_b, deadline, r, p)
+    trace = FaultTrace(t_cut, keep)
+    reset_all_launch_counts()
+    got = pc.decode_counts(*args, trace)
+    launches = pc.launch_counts()["packet_counts_cuda"]
+    want = pc.packet_counts_ref(*args, trace)
+    torch.cuda.synchronize()
+    for mode, g, w in zip(("aon", "conserve"), got, want, strict=True):
+        if not torch.equal(g, w):
+            raise AssertionError(f"packet_counts_cuda {mode}: not bit-equal to the "
+                                 f"composition in {int((g != w).sum())} counts")
+    if launches != 1:
+        raise AssertionError(f"packet_counts_cuda launched {launches} times for one call")
+    del got, want
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: pc.packet_counts_cuda(*args, t_cut, keep))
+    plain_ms = time_ms(lambda: pc.packet_counts_ref(*args, trace), warm=1, runs=3, batch=2)
+    moved = keep.numel() + 4 * (loads.numel() + states.numel() + t_cut.numel()
+                                + 2 * s * b * m * p + 3 * b)
+    b_ms, b_by = _bound(moved, 0, 1)
+    vec = pc.vector_width(n, r * p, keep.data_ptr())
+    log("kernel", name="packet_counts_cuda", shape=(s, b, m, n, r, p), vector_bytes=vec,
+        bit_equal=True, moved_gb=f"{moved / 1e9:.3f}", bound_by=b_by,
+        **timing_fields(b_ms, ms=ms, plain_ms=plain_ms), gpu=json.dumps(nvidia_smi_line()))
+    del states, loads, t_cut, keep, trace, args
+    torch.cuda.empty_cache()
+    return {"packet_counts_cuda": {
+        "max_abs_err": 0.0, **timing_entry(ms=ms, plain_ms=plain_ms), "bound_ms": b_ms,
+        "bound_by": b_by, "kernel_route": f"{vec}-byte keep loads",
+        "composition": "packet_on_time + packet_counts, both modes",
+        "composition_ms": plain_ms.one, "shape": [[s, b, m, n], [b, m, n, r, p]]}}
 
 
 def faults_agree() -> None:
@@ -3782,6 +3856,7 @@ def main() -> int:
 
     # -- phase 11: the fault-injection runtime ------------------------------------
     launches_faults = faults_path()
+    record.update(check_packet_counts())
     phase_done('11 faults')
 
     # -- phase 12: the streaming serving layer -------------------------------------
@@ -3826,7 +3901,8 @@ def main() -> int:
                 "success_tails_cuda": launches_static["success_tails_cuda"],
                 "allocate_masked_cuda": launches_main["allocate_masked_cuda"],
                 **launches_coded, "flash_attention_cuda": launches_lm,
-                "static_resample_cuda": resampled["fig3"]}
+                "static_resample_cuda": resampled["fig3"],
+                "packet_counts_cuda": launches_faults["packet_counts_cuda"]}
     by_path = {"fig3": {"success_tails_cuda_w": launches_main["success_tails_cuda_w"],
                         "allocate_masked_cuda": launches_main["allocate_masked_cuda"],
                         "static_resample_cuda": resampled["fig3"]},

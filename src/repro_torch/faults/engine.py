@@ -17,6 +17,11 @@ trajectory and the SAME faults:
                        code (threshold ``k1star`` over the first ``p1``
                        packet indices) decodes — the degraded serving mode.
 
+Both modes' per-packet counts come from one call
+(:func:`~repro_torch.kernels.packet_counts.decode_counts`): on the card one
+launch of the packet-count kernel, which builds no mask; on the CPU the
+mask composition of :mod:`repro_torch.faults.packets`.
+
 Channel parameters are Python floats or (B,) tensors, one value a row, so
 a whole fault-parameter grid is one call: where the JAX package compiles
 one computation per signature, here the grid launches the allocator kernel
@@ -41,6 +46,7 @@ import torch
 from repro_torch.core import throughput
 from repro_torch.core.lea import PoolLoad
 from repro_torch.device import resolve_device
+from repro_torch.kernels.packet_counts import decode_counts
 from repro_torch.obs import counters as _obs_counters
 from repro_torch.obs import taps as _taps
 from repro_torch.obs.profiling import phase as _phase
@@ -48,7 +54,7 @@ from repro_torch.obs.telemetry import FaultTelemetry
 from repro_torch.random import as_draws
 
 from .channels import apply_channel, base_trace
-from .packets import layer1_recovery, packet_counts, packet_on_time
+from .packets import layer1_recovery
 
 
 class FaultOutcomes(NamedTuple):
@@ -120,13 +126,9 @@ def _faults_batched(draws, pool: PoolLoad, p_gg, p_bb, mu_g, mu_b, deadline, k1s
     with _phase("channel", states.device):
         trace = base_trace(b, rounds, n, r, packets, deadline, device=states.device)
         trace = apply_channel(draws, channel, trace)
-    col = lambda x: x[:, None, None]           # (B,) against (B, M, n)
-    mg, mb, dl = col(mu_g), col(mu_b), col(deadline)
     with _phase("decode", states.device):
-        counts_aon = packet_counts(packet_on_time(
-            states, loads, mg, mb, dl, r, packets, trace=trace, conserve=False))
-        counts_con = packet_counts(packet_on_time(
-            states, loads, mg, mb, dl, r, packets, trace=trace, conserve=True))
+        counts_aon, counts_con = decode_counts(states, loads, mu_g, mu_b, deadline, r,
+                                               packets, trace)    # (S, B, M, P) each
     kstar = pool.kstar[:, None, None]          # against (S, B, M, P)
     full_aon = feasible & torch.all(counts_aon >= kstar, dim=-1)
     full_con = feasible & torch.all(counts_con >= kstar, dim=-1)
@@ -138,7 +140,7 @@ def _faults_batched(draws, pool: PoolLoad, p_gg, p_bb, mu_g, mu_b, deadline, k1s
     if not (telemetry or tap):
         return outcomes
     # fault-event counts: extra outputs of the same tensors
-    preempted = (trace.t_cut < dl).sum(dim=-1, dtype=torch.int32)            # (B, M)
+    preempted = (trace.t_cut < deadline[:, None, None]).sum(dim=-1, dtype=torch.int32)  # (B, M)
     lost = (~trace.keep).sum(dim=(-3, -2, -1), dtype=torch.int32)           # (B, M)
     if tap:
         rows = (np.arange(b, dtype=np.int32) if tap_rows is None

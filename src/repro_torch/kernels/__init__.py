@@ -13,7 +13,10 @@
   * ``static_resample`` — one try of the static strategies' rejection
     resampler over the unfinished rounds of a block,
     ``csrc/static_resample.cu`` (no TPU kernel: the JAX package's engine
-    resamples with whole-batch passes).
+    resamples with whole-batch passes);
+  * ``packet_counts`` — both decode modes' per-packet counts of the fault
+    engine in one pass, ``csrc/packet_counts.cu`` (no TPU kernel: the JAX
+    package composes the masks and their sum in XLA).
 
 ``build`` compiles ``csrc/*.cu`` with nvcc at first use (``build_all``: one
 nvcc per source, in parallel); ``dispatch`` is the route rule (CUDA tensor ->

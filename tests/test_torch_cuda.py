@@ -1268,6 +1268,127 @@ def test_static_resample_kernel_refuses_what_it_does_not_take(cuda_device):
         resampler.redraw(torch.rand((2, 5, 15), device=cuda_device))
 
 
+# ---------------------------------------------------------------------------
+# the fault engine's packet counts: the kernel against the mask composition
+# ---------------------------------------------------------------------------
+
+def _counts_against_the_composition(inputs, r, packets):
+    """The kernel's two count tensors on the card and the composition's on
+    the CPU (the plain route, which divides as IEEE float32) from the same
+    inputs, compared to the bit; one launch."""
+    from _packet_cases import composition
+
+    from repro_torch.kernels import packet_counts as pc
+    before = pc.launch_counts()["packet_counts_cuda"]
+    got = pc.decode_counts(*inputs[:5], r, packets, inputs[5])
+    torch.cuda.synchronize()
+    assert pc.launch_counts()["packet_counts_cuda"] == before + 1
+    cpu = [x.cpu() for x in inputs[:5]]
+    trace = None if inputs[5] is None else type(inputs[5])(*(x.cpu() for x in inputs[5]))
+    want = composition(*cpu, r, packets, trace)
+    for g, w in zip(got, want, strict=True):
+        assert g.is_cuda and g.dtype == torch.int32 and g.shape == w.shape
+        assert torch.equal(g.cpu(), w), int((g.cpu() != w).sum())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 2, 3])
+@pytest.mark.parametrize("packets", [1, 3, 4, 8])
+@pytest.mark.parametrize("r", [1, 4, 10])
+@pytest.mark.parametrize("n", [1, 3, 15, 64])
+def test_packet_counts_kernel_is_the_composition_to_the_bit(cuda_device, n, r, packets, s):
+    """Both modes at every geometry: rows keeping every packet and none,
+    loads 0 and r, crashed and preempted cutoffs, a masked worker
+    (``tests/_packet_cases.py``)."""
+    from _packet_cases import count_inputs
+    inputs = count_inputs(cuda_device, s, n, r, packets, seed=n + 7 * r + 31 * packets + s)
+    aon, con = _counts_against_the_composition(inputs, r, packets)
+    assert bool((aon <= con).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r,packets", [(15, 10, 4), (3, 3, 3), (64, 10, 8)])
+def test_packet_counts_kernel_without_a_trace(cuda_device, n, r, packets):
+    """No trace: cut at the deadline, every packet kept."""
+    from _packet_cases import count_inputs
+    _counts_against_the_composition(count_inputs(cuda_device, 2, n, r, packets, trace=False),
+                                    r, packets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r,packets,offset,width", [
+    (15, 10, 4, 0, 16), (15, 10, 4, 8, 8), (15, 10, 4, 1, 1), (5, 3, 3, 0, 4), (5, 3, 3, 2, 2),
+    (33, 3, 3, 0, 1), (64, 10, 4, 4, 4)])
+def test_packet_counts_kernel_reads_keep_at_every_load_width(cuda_device, n, r, packets,
+                                                            offset, width):
+    """keep laid in a buffer at a byte offset, so its address and the warps'
+    offsets set the load's width (16, 8, 4, 2 or 1 bytes)."""
+    from _packet_cases import count_inputs
+
+    from repro_torch.faults import FaultTrace
+    from repro_torch.kernels.packet_counts import vector_width
+    inputs = count_inputs(cuda_device, 2, n, r, packets, seed=offset)
+    keep = inputs[5].keep
+    buf = torch.zeros(keep.numel() + 16, dtype=torch.bool, device=cuda_device)
+    moved = buf[offset:offset + keep.numel()].view(keep.shape)
+    moved.copy_(keep)
+    assert moved.is_contiguous() and vector_width(n, r * packets, moved.data_ptr()) == width
+    _counts_against_the_composition(inputs[:5] + (FaultTrace(inputs[5].t_cut, moved),),
+                                    r, packets)
+
+
+@pytest.mark.cuda
+def test_packet_counts_kernel_at_degenerate_speeds_and_cutoffs(cuda_device):
+    """Speeds 0 and negative (every packet by its own division), an infinite
+    deadline, NaN cutoffs and loads outside [0, r]."""
+    from _packet_cases import count_inputs
+    states, loads, mu_g, mu_b, _, trace = count_inputs(cuda_device, 2, 15, 10, 4, seed=5)
+    mu_b = torch.tensor([0.0, -2.0, 3.0, float("inf")], device=cuda_device)
+    deadline = torch.tensor([1.0, 1.0, float("inf"), 0.5], device=cuda_device)
+    t_cut = trace.t_cut.clone()
+    t_cut[:, ::5, 3] = float("nan")
+    loads = loads.clone()
+    loads[:, :, 2::3, 0] = -1
+    loads[:, :, 2::3, 1] = 12
+    inputs = (states, loads, mu_g, mu_b, deadline, trace._replace(t_cut=t_cut))
+    _counts_against_the_composition(inputs, 10, 4)
+
+
+@pytest.mark.cuda
+def test_fault_sweep_counts_packets_in_one_launch_a_call(cuda_device):
+    """sweep_faults on the packet_erasure grid: one packet_counts_cuda
+    launch a call, with or without telemetry and taps."""
+    from repro_torch import faults, obs
+    from repro_torch.kernels import packet_counts as pc
+    from repro_torch.random import torch_draws
+    args, geometry = _erasure_args(cuda_device, 200, 2)
+    for kw in ({}, dict(telemetry=True), dict(tap=True, tap_stride=50)):
+        before = pc.launch_counts()["packet_counts_cuda"]
+        with obs.capture_taps():
+            faults.sweep_faults(torch_draws(4, cuda_device), *args, **geometry, **kw,
+                                device=cuda_device)
+        torch.cuda.synchronize()
+        assert pc.launch_counts()["packet_counts_cuda"] == before + 1, kw
+
+
+@pytest.mark.cuda
+def test_packet_counts_kernel_refuses_what_it_does_not_take(cuda_device):
+    from _packet_cases import count_inputs
+
+    from repro_torch.kernels.packet_counts import packet_counts_cuda
+    states, loads, mu_g, mu_b, deadline, (t_cut, keep) = count_inputs(cuda_device, 2, 5, 3, 4)
+    with pytest.raises(ValueError, match="keep must be contiguous"):
+        packet_counts_cuda(states, loads, mu_g, mu_b, deadline, 3, 4, t_cut,
+                           keep.transpose(-1, -2).contiguous().transpose(-1, -2))
+    with pytest.raises(ValueError, match="int32"):
+        packet_counts_cuda(states.long(), loads, mu_g, mu_b, deadline, 3, 4, t_cut, keep)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        packet_counts_cuda(states, loads, mu_g.cpu(), mu_b, deadline, 3, 4, t_cut, keep)
+    with pytest.raises(ValueError, match="keep"):
+        packet_counts_cuda(states, loads, mu_g, mu_b, deadline, 3, 5, t_cut, keep)
+
+
 if __name__ == "__main__":
     import sys
 

@@ -264,6 +264,92 @@ def test_preempted_work_counts_only_under_conserve():
 
 
 # ---------------------------------------------------------------------------
+# both modes' counts in one call (kernels/packet_counts)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("faulted", [False, True])
+@pytest.mark.parametrize("packets", [1, 3, 4])
+def test_decode_counts_cpu_route_is_the_composition(faulted, packets):
+    """A CPU tensor takes the plain version, which is the engine's old
+    composition to the bit, and launches nothing."""
+    from _packet_cases import composition, count_inputs
+
+    from repro_torch.kernels import packet_counts as pc
+    inputs = count_inputs(CPU, 2, 7, 4, packets, trace=faulted)
+    before = pc.launch_counts()
+    got = pc.decode_counts(*inputs[:5], 4, packets, inputs[5])
+    want = composition(*inputs[:5], 4, packets, inputs[5])
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == torch.int32 and g.shape == (2, 4, 37, packets)
+        assert torch.equal(g, w)
+    assert pc.launch_counts() == before
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_aon_counts_are_at_most_conserve_counts(seed):
+    """AON is inside conserve packet by packet, so its counts are at most
+    conserve's, element by element; preempted work makes conserve larger
+    somewhere."""
+    from _packet_cases import count_inputs
+
+    from repro_torch.kernels.packet_counts import decode_counts
+    inputs = count_inputs(CPU, 3, 15, 10, 4, seed=seed)
+    aon, con = decode_counts(*inputs[:5], 10, 4, inputs[5])
+    assert bool((aon <= con).all()) and bool((con > aon).any())
+    assert int(con[:, 1].max()) == 0          # row 1 keeps no packet
+
+
+def _refused(case):
+    from _packet_cases import count_inputs
+
+    states, loads, mu_g, mu_b, deadline, (t_cut, keep) = count_inputs(CPU, 2, 5, 3, 4)
+    if case == "keep_not_contiguous":
+        keep = keep.transpose(-1, -2).contiguous().transpose(-1, -2)
+    elif case == "loads_not_contiguous":
+        loads = loads.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "states_int64":
+        states = states.long()
+    elif case == "loads_float32":
+        loads = loads.float()
+    elif case == "t_cut_float64":
+        t_cut = t_cut.double()
+    elif case == "keep_uint8":
+        keep = keep.to(torch.uint8)
+    elif case == "deadline_per_round":
+        deadline = deadline[:, None].expand(4, 37).contiguous()
+    elif case == "t_cut_without_keep":
+        keep = None
+    return (states, loads, mu_g, mu_b, deadline, 3, 4, t_cut, keep)
+
+
+REFUSALS = {"keep_not_contiguous": "keep must be contiguous",
+            "loads_not_contiguous": "loads must be contiguous",
+            "states_int64": "int32", "loads_float32": "int32", "t_cut_float64": "float32",
+            "keep_uint8": "bool", "deadline_per_round": r"\(4,\)",
+            "t_cut_without_keep": "together", "cpu_tensors": "CUDA kernel"}
+
+
+@pytest.mark.parametrize("case", list(REFUSALS))
+def test_packet_counts_wrapper_refuses_what_the_kernel_does_not_take(case):
+    """The wrapper checks the layout before the device, so a CPU call shows
+    every refusal; well-formed CPU tensors are refused as off the card."""
+    from repro_torch.kernels.packet_counts import launch_counts, packet_counts_cuda
+    before = launch_counts()
+    with pytest.raises(ValueError, match=REFUSALS[case]):
+        packet_counts_cuda(*_refused(case))
+    assert launch_counts() == before
+
+
+@pytest.mark.parametrize("n,rp,address,width", [
+    (15, 40, 0, 16),       # fault_grid: two rounds of 600 bytes a warp
+    (15, 40, 4104, 8), (15, 40, 4097, 1), (1, 3, 0, 16), (5, 9, 0, 4), (7, 2, 0, 8),
+    (3, 1, 2, 2), (64, 40, 0, 16), (33, 9, 0, 1)])
+def test_keep_load_width_divides_every_warps_offset_and_the_address(n, rp, address, width):
+    from repro_torch.kernels.packet_counts import vector_width
+    assert vector_width(n, rp, address) == width
+
+
+# ---------------------------------------------------------------------------
 # per-packet decodes
 # ---------------------------------------------------------------------------
 

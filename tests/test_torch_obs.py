@@ -751,16 +751,17 @@ def test_launch_counts_cover_every_kernel_module():
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.gf import kernel as gfk
     from repro_torch.kernels.lagrange_encode import kernel as le
+    from repro_torch.kernels.packet_counts import kernel as pc
     from repro_torch.kernels.poisson_binomial import kernel as pb
     from repro_torch.kernels.static_resample import kernel as sr
-    mods = (cg, fa, gfk, le, pb, sr)
+    mods = (cg, fa, gfk, le, pc, pb, sr)
     want = {}
     for mod in mods:
         want.update(mod.launch_counts())
     assert set(counters.launch_counts()) == set(want) == {
         "coded_gradient_cuda", "flash_attention_cuda", "matmul_gf_cuda", "bmm_gf_cuda",
         "encode_matrix_cuda", "success_tails_cuda", "success_tails_cuda_w",
-        "allocate_masked_cuda", "static_resample_cuda"}
+        "allocate_masked_cuda", "static_resample_cuda", "packet_counts_cuda"}
     pb._LAUNCHES["success_tails_cuda_w"] += 3
     assert counters.launch_counts()["success_tails_cuda_w"] == pb.launch_counts()[
         "success_tails_cuda_w"]
